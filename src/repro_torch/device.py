@@ -1,0 +1,15 @@
+"""Device resolution shared by every entry point and graph constructor."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA; raise rather than fall back when it is absent."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
