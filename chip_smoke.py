@@ -26,6 +26,20 @@ result line):
    disconnected communities, a modularity in (0, 1), and the segment-reduce
    kernel launched on the way (its count is reset just before the run).
 
+5. The kernel API vs plain, on the card: ``repro_torch.kernels.ops``'s
+   ``cumsum``, ``segsum_sorted``, ``segsum``, ``spmm`` and
+   ``flash_attention`` at full-width shapes (the full-size graph's edge
+   weights, its per-vertex K keyed by phase 4's labels, a sampled Reddit
+   GNN layer, TinyLlama and Mixtral prefill), each kernel's launch count
+   reset just before and read just after one pass through the API.  Each
+   output is held against its plain version within the tolerance the
+   phase prints, with its largest err/tol: float32 rounding bounds against
+   float64 for the sums (per segment for ``segsum_sorted``), the
+   reference's tolerance for spmm, the output's bfloat16 rounding for
+   attention, whose inputs also go through once as float32 at 2e-5;
+   ``segsum`` bit for bit across two launches.  Then the median time of
+   each case, its bound, the plain version's time and one PyTorch call's.
+
 ``--profile`` adds a traced run of phase 4 (device time by kernel, the
 device's busy share).  The second-to-last lines are one JSON object for
 the kernels (``kernels``) and the card line; the last line is the result
@@ -46,6 +60,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 REPLACES = "src/repro/kernels/segsum.py:130"   # segscan_blocked -> pallas_call
 SOURCE = "src/repro_torch/kernels/csrc/segreduce.cu"
 REPS = 10                        # timed calls per kernel measurement
+SLOW_MS = 1000.0                 # ... or SLOW_REPS where one call is slower
+SLOW_REPS = 3
 
 
 def log(*parts):
@@ -62,7 +78,8 @@ def card_line() -> str:
 
 def median_ms(fn, reps: int = REPS) -> float:
     """Median device time of ``fn()`` over ``reps`` calls after one warm-up,
-    each bracketed by CUDA events."""
+    each bracketed by CUDA events; over ``SLOW_REPS`` calls (and said so)
+    where the first timed call took longer than ``SLOW_MS``."""
     import torch
 
     fn()
@@ -75,6 +92,10 @@ def median_ms(fn, reps: int = REPS) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+        if times[0] > SLOW_MS and len(times) == SLOW_REPS < reps:
+            log(f"    (a call took {times[0]:.0f} ms: median of "
+                f"{SLOW_REPS} calls)")
+            break
     return statistics.median(times)
 
 
@@ -208,6 +229,314 @@ def kernel_phase(g) -> dict:
     return entry
 
 
+U32 = 2.0**-24                   # float32 unit roundoff
+BF16_U = 2.0**-8                 # bfloat16 unit roundoff
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+API_SOURCES = {
+    "cumsum": ("src/repro_torch/kernels/csrc/cumsum.cu",
+               "src/repro/kernels/segsum.py:67"),
+    "onehot_segsum": ("src/repro_torch/kernels/csrc/onehot_segsum.cu",
+                      "src/repro/kernels/onehot_segsum.py:39"),
+    "bucket_spmm": ("src/repro_torch/kernels/csrc/spmm.cu",
+                    "src/repro/kernels/spmm.py:42"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:92"),
+}
+
+
+def api_wrappers() -> dict:
+    """The launch-counting wrapper of each kernel of the kernel API."""
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.kernels.onehot_segsum import onehot_segsum_cuda
+    from repro_torch.kernels.segsum import cumsum_cuda
+    from repro_torch.kernels.spmm import bucket_spmm_cuda
+
+    return {"cumsum": cumsum_cuda, "onehot_segsum": onehot_segsum_cuda,
+            "bucket_spmm": bucket_spmm_cuda,
+            "flash_attention": flash_attention_cuda}
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through, per batch and head."""
+    import numpy as np
+
+    qpos = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None \
+        else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def api_cases(g, labels):
+    """The full-width inputs of phase 5, made on the card from seeds:
+    ``(kernel, name, op, args, kwargs)``; ``op`` is the ``ops`` function."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = g.src.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m = g.m_cap
+    n = g.nv
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def randint(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    w_pad = randn(262_144, 16)
+    w_pad[torch.rand((262_144, 16), generator=gen, device=dev) < 0.1] = 0.0
+    tl = dict(b=1, s=4096, hq=32, hkv=4, dh=64)        # TinyLlama-1.1B
+    mx = dict(b=1, s=8192, hq=32, hkv=8, dh=128)       # Mixtral-8x7B
+
+    def qkv(c):
+        return (randn(c["b"], c["s"], c["hq"], c["dh"], dtype=torch.bfloat16),
+                randn(c["b"], c["s"], c["hkv"], c["dh"], dtype=torch.bfloat16),
+                randn(c["b"], c["s"], c["hkv"], c["dh"], dtype=torch.bfloat16))
+
+    return [
+        ("cumsum", "cumsum f32 [M] (edge weights g.w)", ops.cumsum,
+         (g.w,), {}),
+        ("cumsum", "cumsum f32 [M, 2]", ops.cumsum, (randn(m, 2),), {}),
+        ("cumsum", "segsum_sorted g.w by g.src", ops.segsum_sorted,
+         (g.w, g.src, n), {}),
+        ("onehot_segsum", "segsum K by labels (Sigma recompute)", ops.segsum,
+         (g.vertex_weights(), labels, int(labels.max()) + 1), {}),
+        ("onehot_segsum", "segsum D=4, C=524288 (TPU envelope edge)",
+         ops.segsum, (randn(n, 4), randint(524_288, n), 524_288), {}),
+        ("bucket_spmm", "spmm N=262144 K=16 x 16384x128 (10% padding)",
+         ops.spmm, (randint(16_384, 262_144, 16), w_pad,
+                    randn(16_384, 128)), {}),
+        ("bucket_spmm", "spmm Reddit layer N=15360 K=10 x 232965x602",
+         ops.spmm, (randint(232_965, 15_360, 10), randn(15_360, 10),
+                    randn(232_965, 602)), {}),
+        ("flash_attention", "flash TinyLlama S=4096 Hq=32 Hkv=4 Dh=64 causal",
+         ops.flash_attention, qkv(tl), dict(causal=True, window=None)),
+        ("flash_attention", "flash Mixtral S=8192 Hq=32 Hkv=8 Dh=128 "
+         "causal window=4096", ops.flash_attention, qkv(mx),
+         dict(causal=True, window=4096)),
+    ]
+
+
+def check_case(kernel, name, op, args, kw, got
+               ) -> tuple[float, str, object]:
+    """Hold one output against its plain version; returns (max_abs_err,
+    the stated tolerance, the plain function of the case).  Raises on a
+    miss."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    if kernel == "cumsum" and name.startswith("cumsum"):
+        (x,) = args
+        x2 = x[:, None] if x.dim() == 1 else x
+        # along the inner dimension: torch.cumsum along dim 0 of a narrow
+        # [M, D] array takes a path seconds slow (PERF.md)
+        xt = x2.double().t().contiguous()
+        exact = torch.cumsum(xt, 1).t()
+        depth = 64 + -(-x2.shape[0] // 2**20)       # csrc/cumsum.cu
+        tol = depth * U32 * torch.cumsum(xt.abs(), 1).t()
+        del xt
+        err = (got.reshape(x2.shape).double() - exact).abs()
+        del exact
+        stated = f"|err| <= {depth} * 2^-24 * prefix of |x| (vs float64)"
+        plain = ref.cumsum_ref
+    elif kernel == "cumsum":
+        x, ids, nseg = args
+        exact = ref.segsum_sorted_ref(x.double(), ids, nseg)
+        depth = 64 + -(-x.shape[0] // 2**20)
+        # each output is a difference of two prefixes, each within the
+        # cumsum bound at its own row, and one rounding of the difference
+        ends = depth * U32 * torch.cat([x.new_zeros(1, dtype=torch.float64),
+                                        torch.cumsum(x.double().abs(), 0)])
+        b = torch.searchsorted(ids, torch.arange(nseg + 1, dtype=ids.dtype,
+                                                 device=ids.device))
+        pre = ends[b[1:]] + ends[b[:-1]]
+        tol = pre + U32 * (exact.abs() + pre)
+        del ends, b
+        err = (got.double() - exact).abs()
+        rel = err / exact.abs().clamp_min(1e-30)
+        nz = exact != 0
+        log(f"    segsum_sorted f32 error vs float64 direct sum: max abs "
+            f"{float(err.max())}, max relative {float(rel[nz].max())}, "
+            f"segments with any error {int((err > 0).sum())} of {nseg}, "
+            f"largest true segment sum {float(exact.abs().max())}")
+        del exact, rel, pre
+        stated = f"|err| <= t + 2^-24 * (|out| + t), t = {depth} * 2^-24 * " \
+                 "(prefix of |x| at the segment's end + at its start) " \
+                 "(vs float64 direct sum)"
+
+        def plain(v, i, c):
+            return ref.prefix_difference(ref.cumsum_ref(v), i, c)
+    elif kernel == "onehot_segsum":
+        v, ids, nseg = args
+        again = op(*args)
+        if not torch.equal(again, got):
+            raise AssertionError(f"{name}: two launches differ")
+        v2 = v[:, None] if v.dim() == 1 else v
+        exact = ref.onehot_segsum_ref(v2.double(), ids, nseg)
+        count = torch.zeros(nseg, dtype=torch.float64, device=v.device)
+        count.index_add_(0, ids, torch.ones_like(ids, dtype=torch.float64))
+        absum = ref.onehot_segsum_ref(v2.double().abs(), ids, nseg)
+        tol = (2 * count[:, None] + 16) * U32 * absum
+        err = (got.reshape(exact.shape).double() - exact).abs()
+        del exact, count, absum, again
+        stated = "bit-identical across two launches; |err| <= (2 * count " \
+                 "+ 16) * 2^-24 * sum|v| per segment (vs float64)"
+        plain = ref.onehot_segsum_ref
+    elif kernel == "bucket_spmm":
+        plain = ref.bucket_spmm_ref
+        want = plain(*args)
+        tol = 1e-4 + 2e-5 * want.double().abs()
+        err = (got.double() - want.double()).abs()
+        del want
+        stated = "rtol 2e-5, atol 1e-4 vs plain (tests/test_kernels.py)"
+    else:
+        q, k, v = args
+        plain = ref.flash_attention_gqa_ref
+        f32 = [a.float() for a in args]
+        want = plain(*f32, **kw).double()
+        # the same values as float32 inputs: only the sum order differs
+        err32 = (op(*f32, **kw).double() - want).abs()
+        tol32 = 2e-5 + 2e-5 * want.abs()
+        log(f"    float32 inputs: max_abs_err={float(err32.max())}, largest "
+            f"err/tol {float((err32 / tol32).max())} (rtol 2e-5, atol 2e-5 "
+            "vs plain)")
+        if bool((err32 > tol32).any()):
+            raise AssertionError(f"{name}: float32 inputs beyond rtol 2e-5, "
+                                 "atol 2e-5")
+        del f32, err32, tol32
+        # the output's bfloat16 rounding, plus room for the sum order
+        tol = 1e-4 + BF16_U * want.abs()
+        err = (got.double() - want).abs()
+        del want
+        stated = "|err| <= 2^-8 * |out| + 1e-4 vs plain in float32 " \
+                 "(bfloat16 rounding of the output)"
+    miss = int((err > tol).sum())
+    worst = float(err.max()) if err.numel() else 0.0
+    log(f"    largest err/tol {float((err / tol.clamp_min(1e-300)).max())}")
+    del err, tol
+    if miss:
+        raise AssertionError(f"{name}: {miss} elements beyond the stated "
+                             f"tolerance ({stated}); max_abs_err={worst}")
+    return worst, stated, plain
+
+
+def library_call(kernel, name, args, kw):
+    """One PyTorch call computing the case's function (never called by the
+    port), and a note naming it; ``None`` where the plain version is that
+    very call, whose reading then serves for both."""
+    import torch
+    import torch.nn.functional as F
+
+    if kernel == "cumsum" and name.startswith("cumsum"):
+        return None, "torch.cumsum (the plain version's reading)"
+    if kernel in ("cumsum", "onehot_segsum"):
+        v, ids, nseg = args
+        out = torch.zeros((nseg,) + tuple(v.shape[1:]), dtype=v.dtype,
+                          device=v.device)
+        return (lambda: out.index_add_(0, ids, v)), "index_add_ (atomic)"
+    if kernel == "bucket_spmm":
+        nbr, w, x = args
+        return (lambda: F.embedding_bag(nbr, x, mode="sum",
+                                        per_sample_weights=w)), \
+            "F.embedding_bag(mode='sum', per_sample_weights=w)"
+    q, k, v = (a.transpose(1, 2) for a in args)
+    if kw["window"] is None:
+        return (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)), \
+            "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    # no fused backend takes a window with grouped heads: a boolean band
+    # mask over kv heads repeated beforehand (outside the timing)
+    g = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    pos = torch.arange(q.shape[2], device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & \
+        (pos[:, None] - pos[None, :] < kw["window"])
+    return (lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=band)), \
+        "F.scaled_dot_product_attention(attn_mask=band) over repeated kv " \
+        "heads, backend chosen by PyTorch"
+
+
+def case_bound(kernel, name, args, kw, out) -> tuple[float, str]:
+    """Least time for the case's work: inputs read once (of x in a gather,
+    the rows named) and the output written once at the memory rate, or its
+    operations at the peak rate, whichever is longer."""
+    import torch
+
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if hasattr(a, "numel")) + out.numel() * out.element_size()
+    if kernel == "bucket_spmm":
+        # a gather needs only the rows of x that some neighbour names
+        nbr, w, x = args
+        rows = torch.unique(nbr).numel()
+        nbytes -= (x.shape[0] - rows) * x.shape[1] * x.element_size()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if kernel != "flash_attention":
+        return bytes_ms, "bytes"
+    q, k, _ = args
+    b, sq, hq, dh = q.shape
+    flops = 4 * dh * b * hq * attention_pairs(sq, k.shape[1], kw["causal"],
+                                              kw["window"])
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def api_phase(g, labels) -> list[dict]:
+    """Phase 5: the kernel API through ``repro_torch.kernels.ops`` at
+    full-width shapes; returns the kernels' JSON entries."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
+    cases = api_cases(g, labels)
+    wrappers = api_wrappers()
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    outs = [op(*args, **kw) for _, _, op, args, kw in cases]
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    log(f"  launches on the API run: {launches}")
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the kernel API launched no {k} kernel")
+
+    entries = {}
+    for (kernel, name, op, args, kw), got in zip(cases, outs):
+        err, stated, plain = check_case(kernel, name, op, args, kw, got)
+        bound_ms, bound_by = case_bound(kernel, name, args, kw, got)
+        ms = median_ms(lambda: op(*args, **kw))
+        plain_ms = median_ms(lambda: plain(*args, **kw))
+        lib, lib_name = library_call(kernel, name, args, kw)
+        if lib is None:     # the plain version is that one library call
+            library_ms = plain_ms
+        else:
+            library_ms = median_ms(lib)
+        torch.cuda.empty_cache()
+        log(f"  {name}: max_abs_err={err} ({stated})")
+        log(f"    ms={ms}  bound_ms={bound_ms} ({bound_by})  "
+            f"plain_ms={plain_ms}  library_ms={library_ms} [{lib_name}]")
+        variant = dict(case=name, max_abs_err=err, tolerance=stated, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms,
+                       library=lib_name)
+        source, replaces = API_SOURCES[kernel]
+        entry = entries.setdefault(kernel, dict(
+            name=kernel, route="cuda", source=source, replaces=replaces,
+            launches=launches[kernel], max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, variants=[]))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["variants"].append(variant)
+    del outs, cases
+    torch.cuda.empty_cache()
+    return list(entries.values())
+
+
 def small_phase():
     """Phase 3: card vs CPU, labels equal, zero disconnected."""
     import torch
@@ -335,12 +664,16 @@ def main(argv=None) -> int:
     if args.profile:
         profile_phase(g)
 
+    log("phase 5: the kernel API vs plain, on the card")
+    api_entries = api_phase(g, res.labels)
+
     entry["launches"] = launches
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": [entry] + api_entries}))
     log(card)
+    # the run uses one card, whatever else the machine holds
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

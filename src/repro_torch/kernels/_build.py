@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with :mod:`ctypes`.  Libraries go to
 ``build/repro_torch_kernels/<hash>/`` at the root of the checkout, keyed by
-a hash of the source and the flags, so a fresh checkout builds everything
-it runs and a changed source is never served stale.  Nothing prebuilt is
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+a fresh checkout builds everything it runs and a changed source is never
+served stale.  Nothing prebuilt is
 shipped or fetched.  Sources build in parallel: one ``nvcc`` per source,
 all started together.
 """
@@ -20,11 +21,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("segreduce",)
+SOURCES = ("segreduce", "cumsum", "onehot_segsum", "spmm", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# dtype codes of the kernels' float inputs and outputs (csrc/dtypes.cuh)
+FLOAT_CODES = {"float32": 0, "float16": 1, "bfloat16": 2}
+
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[tuple[str, str], object] = {}
 
 
 def nvcc_path() -> str:
@@ -46,6 +51,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
@@ -91,3 +98,30 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def bind(name: str, symbol: str, argtypes):
+    """``symbol`` of ``csrc/<name>.cu`` as a ctypes function returning int
+    (0, or the ``cudaError_t`` of a refused launch), built at first use."""
+    fn = _bound.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _bound[(name, symbol)] = fn
+    return fn
+
+
+def float_code(dtype) -> int:
+    """The kernels' code for a float32/float16/bfloat16 torch dtype."""
+    code = FLOAT_CODES.get(str(dtype).removeprefix("torch."))
+    if code is None:
+        raise TypeError(f"the kernel takes float32, float16 or bfloat16, "
+                        f"got {dtype}")
+    return code
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")

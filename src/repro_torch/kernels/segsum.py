@@ -1,6 +1,8 @@
-"""The sorted segment-reduce kernel's wrapper (``csrc/segreduce.cu``).
+"""The wrappers of the scan kernels: the sorted segment reduce
+(``csrc/segreduce.cu``) and the prefix sum (``csrc/cumsum.cu``).
 
-Replaces the TPU kernel ``repro/kernels/segsum.py:_segscan_kernel`` (reached
+``segreduce_sorted_cuda`` replaces the TPU kernel
+``repro/kernels/segsum.py:_segscan_kernel`` (reached
 through ``segscan_blocked`` and the boundary gather of
 ``repro/kernels/ops.py:segreduce_sorted``).  The TPU kernel streams a
 segmented running scan through VMEM with a carry that resets at run starts,
@@ -16,8 +18,13 @@ keeps every byte to one pass except the offset search, and walks short
 runs with coalesced loads; a power-law hub is walked by one thread, which
 is the known weak spot.
 
-``segreduce_sorted_cuda.launches`` counts kernel launches (a plain int):
-one per launch, nowhere else.
+``cumsum_cuda`` replaces ``repro/kernels/segsum.py:cumsum_blocked`` (body
+``_cumsum_kernel``); its carry across blocks becomes a pass over the block
+totals (see ``csrc/cumsum.cu``).  Bound: bytes, ``M*D`` elements read and
+``M*D*4`` bytes written.
+
+``segreduce_sorted_cuda.launches`` and ``cumsum_cuda.launches`` count kernel
+launches (plain ints): one per launch, nowhere else.
 """
 from __future__ import annotations
 
@@ -42,20 +49,11 @@ def scan_identity(op: str, dtype: torch.dtype):
     return info.min if op == "max" else info.max
 
 
-_kernel_fn = None
-
-
-def _kernel():
-    """The C launcher, built and loaded at first use."""
-    global _kernel_fn
-    if _kernel_fn is None:
-        fn = _build.load("segreduce").segreduce_sorted
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
+_SEGREDUCE_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p)
+_CUMSUM_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def segreduce_sorted_cuda(values: torch.Tensor, ids: torch.Tensor,
@@ -88,17 +86,49 @@ def segreduce_sorted_cuda(values: torch.Tensor, ids: torch.Tensor,
                       device=dev)
     if out.numel() == 0:
         return out
-    launch = _kernel()
+    launch = _build.bind("segreduce", "segreduce_sorted", _SEGREDUCE_ARGS)
     with torch.cuda.device(dev):
         err = launch(
             values.data_ptr(), offsets.data_ptr(), out.data_ptr(),
             num_segments, values.shape[1], OPS[op], DTYPES[values.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"segreduce_sorted kernel launch failed: "
-                           f"cudaError {err}")
+    _build.check(err, "segreduce_sorted")
     segreduce_sorted_cuda.launches += 1
     return out
 
 
 segreduce_sorted_cuda.launches = 0
+
+
+def cumsum_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch the prefix-sum kernel (``csrc/cumsum.cu``): the inclusive sum
+    along axis 0 of ``x [M, D]`` (float32/float16/bfloat16, contiguous, on
+    CUDA) into float32 ``[M, D]``.  Raises on anything the kernel does not
+    take.  One call launches the kernel's three passes and counts one."""
+    code = _build.float_code(x.dtype)
+    if not x.is_cuda:
+        raise ValueError("x must lie on a CUDA device")
+    if x.dim() != 2:
+        raise ValueError(f"need x [M, D], got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    m, d = x.shape
+    if d > 65535:
+        raise ValueError("the kernel takes at most 65535 columns")
+    dev = x.device
+    out = torch.empty((m, d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        rows = _build.bind("cumsum", "cumsum_block_rows", ())()
+        totals = torch.empty((-(-m // rows)) * d, dtype=torch.float32,
+                             device=dev)
+        err = _build.bind("cumsum", "cumsum_f32", _CUMSUM_ARGS)(
+            x.data_ptr(), out.data_ptr(), totals.data_ptr(), m, d, code,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "cumsum")
+    cumsum_cuda.launches += 1
+    return out
+
+
+cumsum_cuda.launches = 0

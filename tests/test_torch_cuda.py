@@ -3,10 +3,12 @@
 They skip where there is no card; on one, run them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 This file imports no jax, so it runs where only PyTorch is installed: the
-kernel is held against its plain version (f32 sums against the plain
-version on a CPU copy, since CUDA's ``index_add_`` folds in no fixed
-order), and ``detect()`` on the card against ``detect()`` on the CPU.
-Exact comparisons throughout.
+segment-reduce kernel is held against its plain version (f32 sums against
+the plain version on a CPU copy, since CUDA's ``index_add_`` folds in no
+fixed order), and ``detect()`` on the card against ``detect()`` on the CPU,
+exactly.  The kernels of the kernel API are held against their plain
+versions within stated bounds: float32 rounding bounds against float64 for
+the sums, the reference's own tolerances for spmm and attention.
 """
 import numpy as np
 import pytest
@@ -15,7 +17,10 @@ import torch
 from repro_torch.core import detect
 from repro_torch.graph import rmat_graph, sbm_graph
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.segsum import segreduce_sorted_cuda
+from repro_torch.kernels.flash_attn import flash_attention_cuda
+from repro_torch.kernels.onehot_segsum import onehot_segsum_cuda
+from repro_torch.kernels.segsum import cumsum_cuda, segreduce_sorted_cuda
+from repro_torch.kernels.spmm import bucket_spmm_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +75,143 @@ def test_detect_card_equals_cpu(cuda, make):
     assert torch.equal(on_card.labels.cpu(), on_cpu.labels)
     assert on_card.n_disconnected == on_cpu.n_disconnected == 0
     assert on_card.stats == on_cpu.stats
+
+
+# --- the kernel API: cumsum, segsum, spmm, flash attention --------------------
+
+def _f64_prefix_bound(x):
+    """The float32 rounding bound of csrc/cumsum.cu: depth * 2^-24 * the
+    prefix of |x|, with depth 64 + ceil(M / 2^20) (see the source)."""
+    depth = 64 + -(-x.shape[0] // 2**20)
+    return depth * 2.0**-24 * torch.cumsum(x.double().abs(), 0)
+
+
+@pytest.mark.parametrize("m,d", [(1, 1), (4097, 1), (100_000, 2),
+                                 (9000, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cumsum_kernel(cuda, m, d, dtype):
+    x = torch.from_numpy(np.random.default_rng(m).normal(size=(m, d))
+                         .astype(np.float32)).to(dtype)
+    before = cumsum_cuda.launches
+    got = ops.cumsum(x.to(cuda)).cpu()
+    assert cumsum_cuda.launches == before + 1
+    assert got.dtype == torch.float32
+    want = torch.cumsum(x.double(), 0)
+    assert bool(((got.double() - want).abs()
+                 <= _f64_prefix_bound(x) + 1e-30).all())
+
+
+def test_segsum_sorted_on_card(cuda):
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(np.sort(rng.integers(0, 300, 50_000))
+                           .astype(np.int32))
+    x = torch.from_numpy(rng.normal(size=(50_000, 2)).astype(np.float32))
+    got = ops.segsum_sorted(x.to(cuda), ids.to(cuda), 310).cpu()
+    want = ref.segsum_sorted_ref(x.double(), ids, 310)
+    # each segment: the prefix bounds at its end and start rows, and one
+    # rounding of the difference
+    ends = torch.cat([torch.zeros((1, 2), dtype=torch.float64),
+                      _f64_prefix_bound(x)])
+    b = torch.searchsorted(ids, torch.arange(311, dtype=torch.int32))
+    t = ends[b[1:]] + ends[b[:-1]]
+    bound = t + 2.0**-24 * (want.abs() + t)
+    assert bool(((got.double() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("n,nseg,d", [(1, 1, 1), (70_000, 5000, 1),
+                                      (30_000, 40, 4), (5000, 9000, 3),
+                                      (20_000, 700, 1500)])
+def test_segsum_kernel_deterministic(cuda, n, nseg, d):
+    rng = np.random.default_rng(n + d)
+    v = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, nseg, n).astype(np.int32))
+    before = onehot_segsum_cuda.launches
+    a = ops.segsum(v.to(cuda), ids.to(cuda), nseg + 2).cpu()
+    b = ops.segsum(v.to(cuda), ids.to(cuda), nseg + 2).cpu()
+    assert onehot_segsum_cuda.launches == before + 2
+    assert torch.equal(a, b)                         # same bits every run
+    assert not a[nseg:].any()
+    want = ref.onehot_segsum_ref(v.double(), ids, nseg + 2)
+    count = torch.zeros(nseg + 2, dtype=torch.float64).index_add_(
+        0, ids, torch.ones(n, dtype=torch.float64))
+    absum = ref.onehot_segsum_ref(v.double().abs(), ids, nseg + 2)
+    # a term meets at most count - 1 adds in its warp, then at most count
+    # nonzero partials across warps and slices
+    bound = (2 * count[:, None] + 16) * 2.0**-24 * absum
+    assert bool(((a.double() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("n,k,nx,d", [(1000, 16, 300, 128),
+                                      (333, 10, 5000, 602), (7, 1, 3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_kernel(cuda, n, k, nx, d, dtype):
+    rng = np.random.default_rng(n + k)
+    nbr = torch.from_numpy(rng.integers(0, nx, (n, k)).astype(np.int32))
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
+    w[torch.from_numpy(rng.random((n, k)) < 0.1)] = 0.0
+    x = torch.from_numpy(rng.normal(size=(nx, d)).astype(np.float32)).to(dtype)
+    before = bucket_spmm_cuda.launches
+    got = ops.spmm(nbr.to(cuda), w.to(cuda), x.to(cuda)).cpu()
+    assert bucket_spmm_cuda.launches == before + 1
+    want = ref.bucket_spmm_ref(nbr, w, x)
+    tol = dict(rtol=2e-5, atol=1e-4) if dtype == torch.float32 \
+        else dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_out_of_range_ids_add_nothing_on_card(cuda):
+    """A neighbour or segment id outside its range is skipped by the
+    kernels, never read, as the plain versions drop it."""
+    rng = np.random.default_rng(23)
+    nbr = torch.from_numpy(rng.integers(0, 300, (64, 4)).astype(np.int32))
+    nbr[[3, 17, 40], [0, 2, 3]] = torch.tensor([-1, 300, 2**31 - 1],
+                                               dtype=torch.int32)
+    w = torch.from_numpy(rng.normal(size=(64, 4)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(300, 8)).astype(np.float32))
+    got = ops.spmm(nbr.to(cuda), w.to(cuda), x.to(cuda)).cpu()
+    torch.testing.assert_close(got, ref.bucket_spmm_ref(nbr, w, x),
+                               rtol=2e-5, atol=1e-4)
+    ids, v = nbr.reshape(-1), x[:256, 0].contiguous()
+    got = ops.segsum(v.to(cuda), ids.to(cuda), 300).cpu()
+    torch.testing.assert_close(got, ref.onehot_segsum_ref(v, ids, 300),
+                               rtol=2e-5, atol=1e-5)
+    assert bool(torch.isfinite(ops.spmm(
+        nbr.to(cuda), w.to(cuda), x[:0].to(cuda))).all())
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,dh,causal,window", [
+    (2, 70, 70, 4, 2, 64, True, None),
+    (1, 129, 129, 2, 1, 128, True, 33),
+    (1, 40, 75, 2, 2, 16, False, None),
+    (1, 64, 64, 1, 1, 200, False, 10),
+    (1, 8, 8, 1, 1, 8, True, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, b, sq, sk, hq, hkv, dh, causal, window,
+                                dtype):
+    rng = np.random.default_rng(sq + dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h, dh))
+                                .astype(np.float32)).to(dtype)
+               for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                              causal=causal, window=window).cpu()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype
+    want = ops.flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 \
+        else dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+def test_flash_attention_reads_strides(cuda):
+    """A [B, H, S, Dh] tensor transposed to [B, S, H, Dh] is read in place."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 50, 32))
+                                .astype(np.float32)).to(cuda).transpose(1, 2)
+               for _ in range(3))
+    got = ops.flash_attention(q, k, v, window=9)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               window=9)
+    assert torch.equal(got, want)
