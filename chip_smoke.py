@@ -37,7 +37,9 @@ result line):
    float64 for the sums (per segment for ``segsum_sorted``), the
    reference's tolerance for spmm, the output's bfloat16 rounding for
    attention, whose inputs also go through once as float32 at 2e-5;
-   ``segsum`` bit for bit across two launches.  Then the median time of
+   ``segsum`` bit for bit across two launches.  Both flash cases are
+   bf16 and must go through the tensor-core kernel (``flash_fwd_wgmma``):
+   the flash entry counts launches by route.  Then the median time of
    each case, its bound, the plain version's time and one PyTorch call's.
 
 ``--profile`` adds a traced run of phase 4 (device time by kernel, the
@@ -49,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -242,6 +245,28 @@ API_SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                         "src/repro/kernels/flash_attn.py:92"),
 }
+
+
+TENSOR_CORE_KERNEL = "flash_fwd_wgmma"
+
+
+def ptxas_lines(report: str, kernel: str) -> list[str]:
+    """One line for each entry function of an ``nvcc -Xptxas -v`` report
+    whose (mangled) name contains ``kernel``: its template arguments, then
+    what ptxas says of registers, shared memory, stack and spills."""
+    entries, cur = [], None
+    for line in report.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            cur = None
+            if kernel in line:
+                m = re.search(kernel + r"I\d+(\w+?)Li(\d+)E", line)
+                cur = [f"{kernel}<{m[1]}, {m[2]}>" if m else kernel]
+                entries.append(cur)
+        elif cur is not None and "Function properties" not in line and \
+                "Compile time" not in line:
+            cur.append(line.removeprefix("ptxas info    : "))
+    return [": ".join((e[0], "; ".join(e[1:]))) for e in entries]
 
 
 def api_wrappers() -> dict:
@@ -491,19 +516,36 @@ def api_phase(g, labels) -> list[dict]:
     full-width shapes; returns the kernels' JSON entries."""
     import torch
 
+    from repro_torch.kernels.flash_attn import (launch_kernel,
+                                                tensor_core_route)
+
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     cases = api_cases(g, labels)
     wrappers = api_wrappers()
+    flash = wrappers["flash_attention"]
     torch.cuda.synchronize()
     for fn in wrappers.values():
         fn.launches = 0
+    flash.tensor_core_launches = 0
     outs = [op(*args, **kw) for _, _, op, args, kw in cases]
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    log(f"  launches on the API run: {launches}")
+    flash_routes = {TENSOR_CORE_KERNEL: flash.tensor_core_launches,
+                    "flash_fwd_kernel": flash.launches
+                    - flash.tensor_core_launches}
+    log(f"  launches on the API run: {launches}; flash_attention by "
+        f"route: {flash_routes}")
     for k, n in launches.items():
         if n == 0:
             raise AssertionError(f"the kernel API launched no {k} kernel")
+    # every full-width flash case is bf16: each must take the tensor cores
+    flash_cases = [args for kernel, _, _, args, _ in cases
+                   if kernel == "flash_attention"]
+    if not all(tensor_core_route(*a) for a in flash_cases) or \
+            flash_routes[TENSOR_CORE_KERNEL] != len(flash_cases):
+        raise AssertionError(
+            f"{len(flash_cases)} flash cases, {flash_routes} launches: not "
+            f"all went through {TENSOR_CORE_KERNEL}")
 
     entries = {}
     for (kernel, name, op, args, kw), got in zip(cases, outs):
@@ -524,12 +566,23 @@ def api_phase(g, labels) -> list[dict]:
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=library_ms,
                        library=lib_name)
+        if kernel == "flash_attention":
+            # the CUDA-core kernel on the same inputs, for comparison on
+            # this card (uncounted: not the path's launch)
+            spare = torch.empty_like(args[0])
+            variant["cuda_core_ms"] = median_ms(lambda: launch_kernel(
+                *args, spare, tensor_cores=False, **kw))
+            log(f"    flash_fwd_kernel (CUDA cores) on the same inputs: "
+                f"ms={variant['cuda_core_ms']}")
+            del spare
         source, replaces = API_SOURCES[kernel]
         entry = entries.setdefault(kernel, dict(
             name=kernel, route="cuda", source=source, replaces=replaces,
             launches=launches[kernel], max_abs_err=0.0, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, variants=[]))
+        if kernel == "flash_attention":
+            entry["launches_by_route"] = flash_routes
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["variants"].append(variant)
     del outs, cases
@@ -620,6 +673,10 @@ def main(argv=None) -> int:
     for name, rep in reports.items():
         for line in rep.strip().splitlines():
             log(f"    [{name}] {line}")
+    for line in ptxas_lines(reports.get("flash_attn", ""),
+                            TENSOR_CORE_KERNEL) or [
+            "flash_attn cached: no build report in this run"]:
+        log(f"  ptxas: {line}")
 
     t0 = time.perf_counter()
     g = rmat_graph(scale=args.scale, edge_factor=16, seed=1, device="cuda")

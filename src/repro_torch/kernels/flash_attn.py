@@ -10,8 +10,14 @@ Hkv)``, so neither a transpose nor the repeated kv heads are materialised,
 and keys at or beyond ``Sk`` are masked rather than padded.  Bound:
 operations, ``4*Dh`` flops per (query, key) pair the mask lets through.
 
+Two kernels serve it, chosen before launch by :func:`tensor_core_route`:
+``flash_fwd_wgmma`` (tensor cores, TMA) for bfloat16/float16 inputs with
+``Dh`` 64 or 128 that TMA can read, ``flash_fwd_kernel`` (CUDA cores,
+float32 arithmetic) for the rest.
+
 ``flash_attention_cuda.launches`` counts kernel launches (a plain int): one
-per launch, nowhere else.
+per launch, nowhere else; ``flash_attention_cuda.tensor_core_launches``
+counts those that went to ``flash_fwd_wgmma``.
 """
 from __future__ import annotations
 
@@ -28,18 +34,49 @@ _ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.POINTER(ctypes.c_longlong),)
          + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p))
 MAX_HEAD_DIM = 256
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 _I32 = 2**31 - 1
+_TMA_STRIDE_LIMIT = 2**40        # bytes
+
+
+def tensor_core_route(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> bool:
+    """Whether ``flash_attention_cuda`` sends these inputs to the
+    tensor-core kernel: bfloat16 or float16 (all three alike), ``Dh`` in
+    ``TENSOR_CORE_HEAD_DIMS``, ``Sk >= 1``, and what TMA requires of each of
+    q, k and v: a 16-byte aligned base pointer, a unit-stride last dimension
+    and batch, sequence and head strides that are positive multiples of 16
+    bytes below 2^40 (a dimension of size 1 is never stepped, so its stride
+    does not count).  Pure: it reads shapes, strides and pointers only, on
+    any device."""
+    if q.dtype not in (torch.bfloat16, torch.float16) or not (
+            k.dtype == v.dtype == q.dtype):
+        return False
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        return False
+    if q.shape[3] not in TENSOR_CORE_HEAD_DIMS or k.shape[1] < 1:
+        return False
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or t.stride(3) != 1:
+            return False
+        for d in range(3):
+            nbytes = t.stride(d) * t.element_size()
+            if t.shape[d] > 1 and not (
+                    0 < nbytes < _TMA_STRIDE_LIMIT and nbytes % 16 == 0):
+                return False
+    return True
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int | None = None) -> torch.Tensor:
-    """Launch the kernel: ``q [B, Sq, Hq, Dh]``, ``k, v [B, Sk, Hkv, Dh]``
+    """Launch a kernel: ``q [B, Sq, Hq, Dh]``, ``k, v [B, Sk, Hkv, Dh]``
     of one float type (float32/float16/bfloat16) on one CUDA device, each
-    with a unit-stride last dimension, ``Hq % Hkv == 0`` and ``Dh <= 256``.
-    Returns ``[B, Sq, Hq, Dh]`` in ``q``'s type.  Raises on anything the
-    kernel does not take."""
-    code = _build.float_code(q.dtype)
+    with a unit-stride last dimension, ``Hq % Hkv == 0`` and ``Dh <= 256``;
+    the tensor-core kernel where :func:`tensor_core_route` says so, else
+    the CUDA-core kernel.  Returns ``[B, Sq, Hq, Dh]`` in ``q``'s type.
+    Raises on anything the kernels do not take."""
+    _build.float_code(q.dtype)          # raises on a type no kernel takes
     if not (k.dtype == v.dtype == q.dtype):
         raise TypeError(f"q, k and v must share one type, got {q.dtype}, "
                         f"{k.dtype} and {v.dtype}")
@@ -68,17 +105,37 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    tensor_cores = tensor_core_route(q, k, v)
+    launch_kernel(q, k, v, out, causal=causal, window=window,
+                  tensor_cores=tensor_cores)
+    flash_attention_cuda.launches += 1
+    if tensor_cores:
+        flash_attention_cuda.tensor_core_launches += 1
+    return out
+
+
+def launch_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, *, causal: bool, window: int | None,
+                  tensor_cores: bool) -> None:
+    """One launch, into a contiguous ``out``, of the kernel named by
+    ``tensor_cores``, on inputs that :func:`flash_attention_cuda` has
+    checked (and, for the tensor cores, that :func:`tensor_core_route`
+    takes).  Not counted: the wrapper counts its own launches, and a
+    measuring script may time the CUDA-core kernel on inputs both take."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    launch = _build.bind("flash_attn", "flash_attention_fwd", _ARGS)
+    launch = _build.bind("flash_attn", "flash_attention_fwd_wgmma"
+                         if tensor_cores else "flash_attention_fwd", _ARGS)
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      strides, b, sq, sk, hq, hkv, dh, int(causal),
                      -1 if window is None else window, 1.0 / math.sqrt(dh),
-                     code, torch.cuda.current_stream(q.device).cuda_stream)
+                     _build.float_code(q.dtype),
+                     torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
-    flash_attention_cuda.launches += 1
-    return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.tensor_core_launches = 0

@@ -8,7 +8,9 @@ the plain version on a CPU copy, since CUDA's ``index_add_`` folds in no
 fixed order), and ``detect()`` on the card against ``detect()`` on the CPU,
 exactly.  The kernels of the kernel API are held against their plain
 versions within stated bounds: float32 rounding bounds against float64 for
-the sums, the reference's own tolerances for spmm and attention.
+the sums, the reference's own tolerances for spmm and float32 attention,
+and the output's bf16 rounding (``chip_smoke.py`` phase 5) for 16-bit
+attention, on both routes of ``kernels/flash_attn.py:tensor_core_route``.
 """
 import numpy as np
 import pytest
@@ -17,7 +19,8 @@ import torch
 from repro_torch.core import detect
 from repro_torch.graph import rmat_graph, sbm_graph
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attn import flash_attention_cuda
+from repro_torch.kernels.flash_attn import (flash_attention_cuda,
+                                            tensor_core_route)
 from repro_torch.kernels.onehot_segsum import onehot_segsum_cuda
 from repro_torch.kernels.segsum import cumsum_cuda, segreduce_sorted_cuda
 from repro_torch.kernels.spmm import bucket_spmm_cuda
@@ -179,6 +182,18 @@ def test_out_of_range_ids_add_nothing_on_card(cuda):
         nbr.to(cuda), w.to(cuda), x[:0].to(cuda))).all())
 
 
+def _assert_output_rounding_bound(got, q, k, v, causal, window):
+    """chip_smoke.py phase 5's bound for 16-bit attention: the output's
+    bf16 rounding, |err| <= 2^-8 * |out| + 1e-4, against the plain version
+    on float32 copies of the inputs (CPU tensors)."""
+    want = ops.flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal, window=window).double()
+    err = (got.cpu().double() - want).abs()
+    tol = 2.0**-8 * want.abs() + 1e-4
+    assert bool((err <= tol).all()), \
+        f"largest err/tol {float((err / tol).max())}"
+
+
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,dh,causal,window", [
     (2, 70, 70, 4, 2, 64, True, None),
     (1, 129, 129, 2, 1, 128, True, 33),
@@ -198,11 +213,11 @@ def test_flash_attention_kernel(cuda, b, sq, sk, hq, hkv, dh, causal, window,
                               causal=causal, window=window).cpu()
     assert flash_attention_cuda.launches == before + 1
     assert got.dtype == dtype
-    want = ops.flash_attention(q.float(), k.float(), v.float(),
-                               causal=causal, window=window)
-    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 \
-        else dict(rtol=3e-2, atol=3e-2)
-    torch.testing.assert_close(got.float(), want, **tol)
+    if dtype == torch.float32:
+        want = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        _assert_output_rounding_bound(got, q, k, v, causal, window)
 
 
 def test_flash_attention_reads_strides(cuda):
@@ -215,3 +230,90 @@ def test_flash_attention_reads_strides(cuda):
     want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                window=9)
     assert torch.equal(got, want)
+
+
+# --- flash attention: the tensor-core route (flash_fwd_wgmma) ---------------
+
+def _flash_inputs(seed, b, sq, sk, hq, hkv, dh, dtype):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(b, s, h, dh))
+                                  .astype(np.float32)).to(dtype)
+                 for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+
+
+def _flash_on_card(cuda, q, k, v, causal, window, tensor_cores):
+    """ops.flash_attention on card copies of q, k, v; asserts one launch,
+    through the tensor-core kernel or not as ``tensor_cores`` says."""
+    qc, kc, vc = q.to(cuda), k.to(cuda), v.to(cuda)
+    assert tensor_core_route(qc, kc, vc) == tensor_cores
+    before = (flash_attention_cuda.launches,
+              flash_attention_cuda.tensor_core_launches)
+    got = ops.flash_attention(qc, kc, vc, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches,
+            flash_attention_cuda.tensor_core_launches) == \
+        (before[0] + 1, before[1] + int(tensor_cores))
+    assert got.dtype == q.dtype and got.shape == q.shape
+    return got.cpu()
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_wgmma_single_tile(cuda, dh):
+    """One 64 x 64 tile, one head, no mask: the descriptors, the swizzle
+    and the accumulator-to-A conversion of the tensor-core kernel."""
+    q, k, v = _flash_inputs(dh, 1, 64, 64, 1, 1, dh, torch.bfloat16)
+    got = _flash_on_card(cuda, q, k, v, False, None, True)
+    _assert_output_rounding_bound(got, q, k, v, False, None)
+
+
+# name: (b, sq, sk, hq, hkv, causal, window)
+TENSOR_CORE_CASES = {
+    "ragged_s": (2, 200, 200, 4, 2, True, None),
+    "gqa_4": (1, 256, 256, 8, 2, True, None),
+    "gqa_8": (1, 192, 192, 8, 1, True, None),
+    "window_edge_in_tile": (1, 300, 300, 2, 1, True, 100),
+    "non_causal_sq_ne_sk": (1, 100, 333, 2, 2, False, None),
+    "window_0_sees_nothing": (1, 130, 130, 2, 1, True, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TENSOR_CORE_CASES))
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_tensor_core_route(cuda, case, dh, dtype):
+    b, sq, sk, hq, hkv, causal, window = TENSOR_CORE_CASES[case]
+    q, k, v = _flash_inputs(sq + sk + dh, b, sq, sk, hq, hkv, dh, dtype)
+    got = _flash_on_card(cuda, q, k, v, causal, window, True)
+    _assert_output_rounding_bound(got, q, k, v, causal, window)
+    if window == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_tensor_core_reads_transposed_views(cuda, dh, dtype):
+    """Aligned [B, H, S, Dh] tensors transposed to [B, S, H, Dh] go through
+    the tensor cores in place and give what their contiguous copies give."""
+    rng = np.random.default_rng(dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 4, 150, dh))
+                                .astype(np.float32)).to(dtype).transpose(1, 2)
+               for _ in range(3))
+    got = _flash_on_card(cuda, q, k, v, True, 40, True)
+    want = _flash_on_card(cuda, q.contiguous(), k.contiguous(),
+                          v.contiguous(), True, 40, True)
+    assert torch.equal(got, want)
+    _assert_output_rounding_bound(got, q, k, v, True, 40)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64),
+                                      (torch.bfloat16, 200)])
+def test_flash_cuda_core_route(cuda, dtype, dh):
+    """float32 inputs and a head size the tensor-core kernel does not take
+    launch the CUDA-core kernel."""
+    q, k, v = _flash_inputs(5, 1, 96, 96, 4, 2, dh, dtype)
+    got = _flash_on_card(cuda, q, k, v, True, None, False)
+    if dtype == torch.float32:
+        want = ops.flash_attention(q, k, v, causal=True, window=None)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        _assert_output_rounding_bound(got, q, k, v, True, None)
