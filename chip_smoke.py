@@ -29,23 +29,27 @@ result line):
 5. The kernel API vs plain, on the card: ``repro_torch.kernels.ops``'s
    ``cumsum``, ``segsum_sorted``, ``segsum``, ``spmm`` and
    ``flash_attention`` at full-width shapes (the full-size graph's edge
-   weights, its per-vertex K keyed by phase 4's labels, a sampled Reddit
-   GNN layer, TinyLlama and Mixtral prefill), each kernel's launch count
-   reset just before and read just after one pass through the API.  Each
+   weights, its per-vertex K keyed by phase 4's labels, one giant
+   community among 524,288, a sampled Reddit GNN layer, TinyLlama and
+   Mixtral prefill), each kernel's launch count reset just before and read
+   just after one pass through the API.  Each
    output is held against its plain version within the tolerance the
    phase prints, with its largest err/tol: float32 rounding bounds against
    float64 for the sums (per segment for ``segsum_sorted``), the
    reference's tolerance for spmm, the output's bfloat16 rounding for
    attention, whose inputs also go through once as float32 at 2e-5;
-   ``segsum`` bit for bit across two launches.  Both flash cases are
+   ``segsum`` bit for bit across two launches, and at the Sigma recompute's
+   shape bit for bit the CPU emulation of its fold order
+   (``kernels/onehot_segsum.py:emulate``).  Both flash cases are
    bf16 and must go through the tensor-core kernel (``flash_fwd_wgmma``):
    the flash entry counts launches by route.  Then the median time of
    each case, its bound, the plain version's time and one PyTorch call's.
 
 ``--profile`` adds a traced run of phase 4 (device time by kernel, the
-device's busy share).  The second-to-last lines are one JSON object for
-the kernels (``kernels``) and the card line; the last line is the result
-object.
+device's busy share) and, in phase 5, three traced calls of each
+``segsum`` case (device time a launch by kernel).  The second-to-last lines are
+one JSON object for the kernels (``kernels``) and the card line; the last
+line is the result object.
 """
 from __future__ import annotations
 
@@ -248,6 +252,7 @@ API_SOURCES = {
 
 
 TENSOR_CORE_KERNEL = "flash_fwd_wgmma"
+SIGMA_CASE = "segsum K by labels (Sigma recompute)"
 
 
 def ptxas_lines(report: str, kernel: str) -> list[str]:
@@ -311,6 +316,8 @@ def api_cases(g, labels):
         return torch.randint(0, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
+    giant = randint(524_288, n)
+    giant[torch.randperm(n, generator=gen, device=dev)[: n // 2]] = 0
     w_pad = randn(262_144, 16)
     w_pad[torch.rand((262_144, 16), generator=gen, device=dev) < 0.1] = 0.0
     tl = dict(b=1, s=4096, hq=32, hkv=4, dh=64)        # TinyLlama-1.1B
@@ -327,10 +334,13 @@ def api_cases(g, labels):
         ("cumsum", "cumsum f32 [M, 2]", ops.cumsum, (randn(m, 2),), {}),
         ("cumsum", "segsum_sorted g.w by g.src", ops.segsum_sorted,
          (g.w, g.src, n), {}),
-        ("onehot_segsum", "segsum K by labels (Sigma recompute)", ops.segsum,
+        ("onehot_segsum", SIGMA_CASE, ops.segsum,
          (g.vertex_weights(), labels, int(labels.max()) + 1), {}),
         ("onehot_segsum", "segsum D=4, C=524288 (TPU envelope edge)",
          ops.segsum, (randn(n, 4), randint(524_288, n), 524_288), {}),
+        ("onehot_segsum", "segsum D=1, C=524288, half the rows in segment 0 "
+         "(one giant community)", ops.segsum,
+         (randn(n), giant, 524_288), {}),
         ("bucket_spmm", "spmm N=262144 K=16 x 16384x128 (10% padding)",
          ops.spmm, (randint(16_384, 262_144, 16), w_pad,
                     randn(16_384, 128)), {}),
@@ -353,6 +363,7 @@ def check_case(kernel, name, op, args, kw, got
     import torch
 
     from repro_torch.kernels import ref
+    from repro_torch.kernels.onehot_segsum import emulate
 
     if kernel == "cumsum" and name.startswith("cumsum"):
         (x,) = args
@@ -401,6 +412,16 @@ def check_case(kernel, name, op, args, kw, got
         if not torch.equal(again, got):
             raise AssertionError(f"{name}: two launches differ")
         v2 = v[:, None] if v.dim() == 1 else v
+        # the kernel's fold order, run on the host: the same bits.  The
+        # Sigma case's whole-number K sum exactly in any order, so the
+        # random values of the other two cases are what test the order
+        want = emulate(v2.cpu(), ids.cpu(), nseg)
+        if not torch.equal(got.reshape(want.shape).cpu().view(torch.int32),
+                           want.view(torch.int32)):
+            raise AssertionError(f"{name}: differs from the CPU "
+                                 "emulation of its fold order")
+        log("    bit-identical to the CPU emulation of the fold order")
+        del want
         exact = ref.onehot_segsum_ref(v2.double(), ids, nseg)
         count = torch.zeros(nseg, dtype=torch.float64, device=v.device)
         count.index_add_(0, ids, torch.ones_like(ids, dtype=torch.float64))
@@ -511,9 +532,30 @@ def case_bound(kernel, name, args, kw, out) -> tuple[float, str]:
         (bytes_ms, "bytes")
 
 
-def api_phase(g, labels) -> list[dict]:
+def device_time_by_kernel(fn, calls: int = 3) -> str:
+    """Traced calls of ``fn()``: device microseconds a launch, by kernel
+    name (averaged over the launches traced: a trace can miss the first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total / e.count, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return "; ".join(f"{name[:60]} {us:.1f} us (x{n})"
+                     for us, n, name in sorted(rows, reverse=True))
+
+
+def api_phase(g, labels, profile=False) -> list[dict]:
     """Phase 5: the kernel API through ``repro_torch.kernels.ops`` at
-    full-width shapes; returns the kernels' JSON entries."""
+    full-width shapes; returns the kernels' JSON entries.  With
+    ``profile``, each ``segsum`` case is traced three times more."""
     import torch
 
     from repro_torch.kernels.flash_attn import (launch_kernel,
@@ -566,6 +608,9 @@ def api_phase(g, labels) -> list[dict]:
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=library_ms,
                        library=lib_name)
+        if profile and kernel == "onehot_segsum":
+            log(f"    traced calls, device time a launch by kernel: "
+                f"{device_time_by_kernel(lambda: op(*args, **kw))}")
         if kernel == "flash_attention":
             # the CUDA-core kernel on the same inputs, for comparison on
             # this card (uncounted: not the path's launch)
@@ -643,7 +688,8 @@ def main(argv=None) -> int:
                     help="R-MAT scale of the full-size graph (default 21)")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 4, run detect() once more under "
-                    "torch.profiler and print device time by kernel")
+                    "torch.profiler and print device time by kernel; trace "
+                    "one call of each segsum case of phase 5 too")
     args = ap.parse_args(argv)
 
     import torch
@@ -722,7 +768,7 @@ def main(argv=None) -> int:
         profile_phase(g)
 
     log("phase 5: the kernel API vs plain, on the card")
-    api_entries = api_phase(g, res.labels)
+    api_entries = api_phase(g, res.labels, profile=args.profile)
 
     entry["launches"] = launches
     log(json.dumps({"kernels": [entry] + api_entries}))

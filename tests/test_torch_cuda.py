@@ -21,7 +21,8 @@ from repro_torch.graph import rmat_graph, sbm_graph
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attn import (flash_attention_cuda,
                                             tensor_core_route)
-from repro_torch.kernels.onehot_segsum import onehot_segsum_cuda
+from repro_torch.kernels.onehot_segsum import (emulate, onehot_segsum_cuda,
+                                               plan_for, scratch_bytes)
 from repro_torch.kernels.segsum import cumsum_cuda, segreduce_sorted_cuda
 from repro_torch.kernels.spmm import bucket_spmm_cuda
 
@@ -142,6 +143,82 @@ def test_segsum_kernel_deterministic(cuda, n, nseg, d):
     # nonzero partials across warps and slices
     bound = (2 * count[:, None] + 16) * 2.0**-24 * absum
     assert bool(((a.double() - want).abs() <= bound).all())
+
+
+def _segsum_inputs(n, nseg, d, seed, skew=False):
+    rng = np.random.default_rng(seed)
+    v = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    ids = rng.integers(0, nseg, n).astype(np.int32)
+    if skew:                                   # half the rows in segment 0
+        ids[rng.permutation(n)[: n // 2]] = 0
+    return v, torch.from_numpy(ids)
+
+
+# the cases of test_segsum_kernel_deterministic, then a giant segment split
+# over many pieces, D between 4 and 32, a huge C with few rows, C past the
+# shared counters (D = 1, 2 and 40), and C = 10^8 with N = 1000
+EMULATED = [(1, 1, 1, False), (70_000, 5000, 1, False),
+            (30_000, 40, 4, False), (5000, 9000, 3, False),
+            (20_000, 700, 1500, False), (300_000, 524_288, 1, True),
+            (8000, 2000, 12, False), (1000, 10**6, 1, False),
+            (1000, 5 * 10**6, 1, False), (300_000, 8 * 10**6, 2, False),
+            (5000, 200_000, 40, False), (1000, 10**8, 1, False)]
+
+
+@pytest.mark.parametrize("n,nseg,d,skew", EMULATED)
+def test_segsum_kernel_equals_emulation(cuda, n, nseg, d, skew):
+    """Bit for bit: the kernel folds in the order that
+    ``onehot_segsum.emulate`` runs on the CPU."""
+    v, ids = _segsum_inputs(n, nseg, d, n + d, skew)
+    got = ops.segsum(v.to(cuda), ids.to(cuda), nseg + 2).cpu()
+    want = emulate(v, ids, nseg + 2)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 4, 40])
+def test_segsum_kernel_half_types(cuda, dtype, d):
+    """16-bit values: summed in float32, rounded once to the input type,
+    bit for bit the emulation's."""
+    v, ids = _segsum_inputs(50_000, 3000, d, d, skew=True)
+    v = v.to(dtype)
+    got = ops.segsum(v.to(cuda), ids.to(cuda), 3000).cpu()
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.int16), emulate(v, ids, 3000).view(
+        torch.int16))
+
+
+@pytest.mark.parametrize("n,c,d", [(2_097_153, 857_336, 1),
+                                   (2_097_152, 524_288, 4), (20_000, 702, 1500),
+                                   (10, 5, 3072), (0, 1, 1),
+                                   (1000, 10**8, 1), (300_000, 8 * 10**6, 2)])
+def test_segsum_scratch_bytes(cuda, n, c, d):
+    """The source's layout holds each region: counters and their scan, the
+    permuted rows, the partial tiles, each aligned to 256 bytes."""
+    p = plan_for(n, c, d)
+    m = p.buckets * p.chunks
+    need = 12 * m + 4 * n + 4 * n * d + \
+        4 * p.partial_slots * p.tile_segments * d + \
+        (32 * m if p.shared_counters else 0)
+    assert need <= scratch_bytes(p, 4) <= need + 7 * 256 + 8 * m
+    # D = 1 keeps 8-byte records (value in float32) whatever the type
+    half = scratch_bytes(p, 4) - (0 if d == 1 else 2 * n * d)
+    assert half <= scratch_bytes(p, 2) <= half + 256
+
+
+def test_segsum_scratch_refuses_a_plan_the_kernel_does_not_take(cuda):
+    p = plan_for(100, 10, 4)
+    with pytest.raises(ValueError, match="does not take"):
+        scratch_bytes(p._replace(tile_segments=2 * p.tile_segments), 4)
+
+
+def test_segsum_kernel_channel_limit(cuda):
+    v, ids = _segsum_inputs(64, 3, 3072, 1)
+    got = ops.segsum(v.to(cuda), ids.to(cuda), 3).cpu()
+    assert torch.equal(got, emulate(v, ids, 3))
+    wide = torch.zeros((64, 3073), device=cuda)
+    with pytest.raises(ValueError, match="3072 channels"):
+        ops.segsum(wide, ids.to(cuda), 3)
 
 
 @pytest.mark.parametrize("n,k,nx,d", [(1000, 16, 300, 128),

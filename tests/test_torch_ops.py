@@ -30,7 +30,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attn import flash_attention_cuda
-from repro_torch.kernels.onehot_segsum import onehot_segsum_cuda, slices_for
+from repro_torch.kernels.onehot_segsum import onehot_segsum_cuda, plan_for
 from repro_torch.kernels.segsum import cumsum_cuda
 from repro_torch.kernels.spmm import bucket_spmm_cuda
 
@@ -255,11 +255,16 @@ def test_segsum_drops_out_of_range_ids(impl):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=2e-5, atol=1e-4)
 
 
-def test_segsum_slices_fill_the_card():
-    assert slices_for(2_097_153, 280, 132) == 4
-    assert slices_for(100, 1, 132) == 1
-    assert slices_for(10**9, 1, 132) == 8 * 132
-    assert slices_for(0, 5, 132) == 1
+@pytest.mark.parametrize("n,nseg,d,buckets,chunks,pieces", [
+    (2_097_153, 857_336, 1, 210, 257, 723), (100, 1, 1, 1, 1, 2),
+    (10**9, 1, 1, 1, 122_071, 244_142), (0, 5, 3, 1, 1, 1)])
+def test_segsum_plan_needs_only_the_shape(n, nseg, d, buckets, chunks, pieces):
+    """The kernel's grid and scratch follow from (N, C, D) alone: no count
+    is read back from the card and no SM count enters the fold order."""
+    p = plan_for(n, nseg, d)
+    assert (p.buckets, p.chunks, p.pieces) == (buckets, chunks, pieces)
+    assert p.buckets * p.tile_segments >= nseg
+    assert p.chunks * p.chunk_rows >= n
 
 
 # --- flash attention ---------------------------------------------------------
