@@ -11,12 +11,17 @@ result line):
 2. Kernel vs plain, on the card, at the main path's sizes (the edge arrays
    of the full-size graph of phase 4): every (op, dtype, D) the main path
    uses, with empty segments, the graph's hub segments and a 96-row
-   in-order fold.  Exactness is required bit for bit.  f32 sums are held
-   against the plain version run on a CPU copy of the same inputs, because
-   on CUDA the plain version's ``index_add_`` is atomic and folds in no
-   fixed order; max/min and int32 results are held against the plain
-   version on the card.  Prints each case's median time, byte bound, the
-   plain version's time and the library call's (``index_add_`` /
+   in-order fold; one segment of all M rows; the run-field layout (ids
+   ``0..n_runs-1`` over ``m_cap`` slots, an empty tail of tens of millions
+   of segments); a small case of ±0 ties and NaNs.  Exactness is required
+   bit for bit (int32 bits of float32, NaN bits included).  f32 sums and
+   the ±0/NaN case are held against the plain version run on a CPU copy of
+   the same inputs, because on CUDA the plain version's ``index_add_`` is
+   atomic and folds in no fixed order; the other max/min and int32 results
+   are held against the plain version on the card, which is exact in any
+   order there.  Prints each case's route (``in-order`` or ``tiled``,
+   ``kernels/segsum.py:route``), median time, byte bound, the plain
+   version's time and the library call's (``index_add_`` /
    ``scatter_reduce_``), which the port never calls.
 3. End to end, small: ``detect()`` on the card and on the CPU give equal
    labels and zero disconnected communities.
@@ -46,7 +51,7 @@ result line):
    each case, its bound, the plain version's time and one PyTorch call's.
 
 ``--profile`` adds a traced run of phase 4 (device time by kernel, the
-device's busy share) and, in phase 5, three traced calls of each
+device's busy share, and each segment-reduce kernel's total) and, in phase 5, three traced calls of each
 ``segsum`` case (device time a launch by kernel).  The second-to-last lines are
 one JSON object for the kernels (``kernels``) and the card line; the last
 line is the result object.
@@ -107,15 +112,21 @@ def median_ms(fn, reps: int = REPS) -> float:
 
 
 def max_abs_err(got, want) -> float:
+    """0.0 exactly when ``got`` equals ``want`` bit for bit (float32 as
+    its int32 bits, so -0 differs from +0 and NaN bits must agree); else
+    the largest difference of unequal elements (inf where one is NaN)."""
     import torch
 
-    """0.0 exactly when ``got`` equals ``want`` element for element."""
     if got.shape != want.shape or got.dtype != want.dtype:
         return float("inf")
-    same = got == want
+    if got.dtype == torch.float32:
+        same = got.view(torch.int32) == want.view(torch.int32)
+    else:
+        same = got == want
     if bool(same.all()):
         return 0.0
     diff = (got.double() - want.double()).abs()
+    diff = torch.where(torch.isnan(diff), float("inf"), diff)
     return float(torch.where(same, torch.zeros_like(diff), diff).max())
 
 
@@ -137,11 +148,34 @@ def run_lengths_ids(m: int, hub: int, device):
     return torch.from_numpy(ids.astype(np.int32)).to(device)
 
 
+def run_field_ids(m: int, device):
+    """Run ids as ``aggregate``'s run fields see them: ``0..n_runs-1`` over
+    ``m`` slots (geometric runs of mean 4), so the segments after
+    ``n_runs - 1`` are an empty tail."""
+    import numpy as np
+    import torch
+
+    lens = np.random.default_rng(1).geometric(0.25, m)
+    n_runs = int(np.searchsorted(np.cumsum(lens), m)) + 1
+    run = np.repeat(np.arange(n_runs, dtype=np.int32), lens[:n_runs])[:m]
+    return torch.from_numpy(run).to(device)
+
+
+def special_values(m: int, d: int, gen):
+    """float32 ``[m, d]`` drawn from ±0, ±1, 2.5, ±inf and NaN."""
+    import torch
+
+    pool = torch.tensor([-0.0, 0.0, 1.0, -1.0, 2.5, float("inf"),
+                         float("-inf"), float("nan")])
+    return pool[torch.randint(0, len(pool), (m, d), generator=gen)]
+
+
 def kernel_phase(g) -> dict:
     """Phase 2.  Returns the kernel's JSON entry (launches filled later)."""
     import torch
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segsum import route
 
     dev = g.src.device
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -164,7 +198,12 @@ def kernel_phase(g) -> dict:
     dq[torch.rand((m, 2), generator=gen).to(dev) < 0.5] = float("-inf")
     cmin = i32(0, g.nv)
     cmin[torch.rand((m, 1), generator=gen).to(dev) < 0.5] = 2**31 - 1
-    # (name, values, ids, nseg, op): each (op, dtype, D) the main path runs
+    fid = run_field_ids(m, dev)
+    small = 10_000
+    sid = torch.sort(torch.randint(0, 1500, (small,), generator=gen,
+                                   dtype=torch.int32)).values.to(dev)
+    # (name, values, ids, nseg, op): each (op, dtype, D) the main path
+    # runs, then the layouts that would bring back a hub, then ±0 and NaN
     cases = [
         ("sum f32 D=2 (pass A run sums)", f32(2), rid, m, "sum"),
         ("sum f32 D=1 (K by src)", f32(1), src, g.nv, "sum"),
@@ -174,12 +213,19 @@ def kernel_phase(g) -> dict:
         ("sum i32 D=1 (detector pieces)", i32(0, 2), rid, m, "sum"),
         ("sum i32 D=2 (aggregate run fields)", i32(0, g.nv).repeat(1, 2),
          rid, m, "sum"),
+        ("min i32 D=1 (one segment of all M rows)", i32(-2**31, 2**31 - 1),
+         torch.zeros(m, dtype=torch.int32, device=dev), 1, "min"),
+        (f"sum i32 D=2 (run fields: {int(fid[-1]) + 1} runs over m_cap "
+         "slots, empty tail)", i32(0, g.nv).repeat(1, 2), fid, m, "sum"),
+        ("max f32 D=2 (±0 ties and NaN, 10,000 rows)",
+         special_values(small, 2, gen).to(dev), sid, 1600, "max"),
     ]
     variants, worst = [], 0.0
     for name, v, ids, nseg, op in cases:
+        how = route(op, v.dtype)
         got = ops.segreduce_sorted(v, ids, nseg, op=op)
         torch.cuda.synchronize()
-        if op == "sum" and v.dtype == torch.float32:
+        if how == "in-order" or v.shape[0] == small:   # f32 sums, ±0/NaN
             want = ref.segreduce_sorted_ref(v.cpu(), ids.cpu(), nseg, op=op)
             got_c = got.cpu()
         else:
@@ -203,11 +249,13 @@ def kernel_phase(g) -> dict:
         library_ms = median_ms(lib)
         nbytes = v.numel() * 4 + ids.numel() * 4 + nseg * v.shape[1] * 4
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        variants.append(dict(case=name, rows=m, segments=nseg,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, library_ms=library_ms))
-        log(f"  {name:38s} exact  ms={ms:.4f}  bound_ms={bound_ms:.4f}  "
-            f"plain_ms={plain_ms:.4f}  library_ms={library_ms:.4f}")
+        variants.append(dict(case=name, route=how, rows=v.shape[0],
+                             segments=nseg, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             library_ms=library_ms))
+        log(f"  {name} [{how}]: bit-identical  ms={ms:.4f}  "
+            f"bound_ms={bound_ms:.4f}  plain_ms={plain_ms:.4f}  "
+            f"library_ms={library_ms:.4f}")
         del got, got_c, want, out
 
     # the 96-row in-order case of the reference's test_segscan_inorder_fold
@@ -678,8 +726,13 @@ def profile_phase(g):
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     log(f"  traced detect: wall={wall} s  device busy={busy_us / 1e6} s "
         f"({100 * busy_us / 1e6 / wall} %)")
-    log(events.table(sort_by="self_device_time_total", row_limit=15,
+    log(events.table(sort_by="self_device_time_total", row_limit=25,
                      max_name_column_width=70))
+    seg = sorted(((e.self_device_time_total, e.count, e.key) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "segreduce" in e.key), reverse=True)
+    for us, n, name in seg:
+        log(f"  {name[:100]}: {us / 1e3} ms device, {n} launches")
 
 
 def main(argv=None) -> int:

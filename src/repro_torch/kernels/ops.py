@@ -7,10 +7,13 @@ There is no fallback from one to the other.  The public functions keep the
 reference's signatures and layouts, less its ``impl`` and block-size knobs.
 
 The bit-exactness contract of :func:`segreduce_sorted` carries over from
-the reference: every segment is folded strictly in index order, so the
-kernel, the plain version on the CPU and the JAX package's backends agree
-bit for bit, and with them every delta-modularity tie-break and partition.
-The other functions are held to the reference within stated tolerances.
+the reference: the kernel, the plain version and the JAX package's
+backends agree bit for bit, and with them every delta-modularity tie-break
+and partition.  The f32 sum folds every segment strictly in index order.
+Max, min (the reference's IEEE maximum/minimum: -0 below +0, NaN
+absorbing) and the int32 sum (wrapping) are exact in any order, so the
+kernel reduces them in a tree and still gives the same bits.  The other
+functions are held to the reference within stated tolerances.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ def segreduce_sorted(values: torch.Tensor, ids: torch.Tensor,
 
     values: [M] or [M, D], float32 or int32; ids: int32[M], nondecreasing,
     in [0, num_segments).  Empty segments get the same fills as the
-    ``jax.ops.segment_*`` family (0 / dtype-min / dtype-max).
+    ``jax.ops.segment_*`` family (0 / dtype-min / dtype-max).  A float32
+    max or min segment that holds a NaN is NaN; +0 is above -0.
     """
     squeeze = values.dim() == 1
     v = values[:, None] if squeeze else values

@@ -6,11 +6,15 @@ runs, and what the kernel is held against on the card.
 
 :func:`segreduce_sorted_ref` is the plain version of the segment-reduce
 kernel (``csrc/segreduce.cu``): the same function, the same signature.  On
-the CPU it folds every segment in index order (``index_add_`` and
-``scatter_reduce_`` walk the rows sequentially there, which the tests pin
-against the JAX reference), so the port uses it for CPU tensors.  On CUDA
+the CPU its f32 sum folds every segment in index order (``index_add_``
+walks the rows sequentially there, which the tests pin against the JAX
+reference), so the port uses it for CPU tensors.  On CUDA that
 ``index_add_`` is atomic and folds in no fixed order: there it serves only
-as a comparison and timing yardstick, never on the main path.
+as a comparison and timing yardstick, never on the main path.  Its max,
+min and int32 sum are exact in any order on both devices: f32 max/min
+reduce the int32 key of :func:`order_key` with ``scatter_reduce_``, which
+gives the reference's IEEE maximum/minimum (-0 below +0, NaN absorbing)
+bit for bit, with the same NaN bits as the kernel.
 """
 from __future__ import annotations
 
@@ -21,23 +25,43 @@ import torch
 from repro_torch.kernels.segsum import scan_identity
 
 _REDUCE = {"max": "amax", "min": "amin"}
+_INT32 = torch.iinfo(torch.int32)
+
+
+def order_key(bits: torch.Tensor) -> torch.Tensor:
+    """The int32 key of float32 bits (``x.view(torch.int32)``) whose order
+    is the float order with -0 below +0; its own inverse.  (NaN bits map
+    outside [key(-inf), key(+inf)]; :func:`segreduce_sorted_ref` sends them
+    to the key that wins instead.)"""
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
 
 
 def segreduce_sorted_ref(values: torch.Tensor, ids: torch.Tensor,
                          num_segments: int, *, op: str = "sum"
                          ) -> torch.Tensor:
     """Segment reduce of ``values [M]`` or ``[M, D]`` over ``ids [M]`` in
-    ``[0, num_segments)``; empty segments get :func:`scan_identity`."""
-    out = torch.full((num_segments,) + tuple(values.shape[1:]),
-                     scan_identity(op, values.dtype), dtype=values.dtype,
-                     device=values.device)
+    ``[0, num_segments)``; empty segments get :func:`scan_identity`.  A
+    float32 max (min) segment that holds a NaN gives the NaN of bits
+    0x7fffffff (0xffffffff), as the kernel does."""
+    shape = (num_segments,) + tuple(values.shape[1:])
     if op == "sum":
+        out = torch.zeros(shape, dtype=values.dtype, device=values.device)
         return out.index_add_(0, ids, values)
     if op not in _REDUCE:
         raise ValueError(f"op must be sum, max or min, got {op!r}")
+    keyed = values.dtype == torch.float32
+    x, init = values, scan_identity(op, values.dtype)
+    if keyed:
+        nan_key = _INT32.max if op == "max" else _INT32.min
+        x = torch.where(torch.isnan(values), nan_key,
+                        order_key(values.view(torch.int32)))
+        init = int(order_key(torch.tensor(init, dtype=torch.float32)
+                             .view(torch.int32)))
+    out = torch.full(shape, init, dtype=x.dtype, device=values.device)
     index = ids.long().view((-1,) + (1,) * (values.dim() - 1))
-    return out.scatter_reduce_(0, index.expand_as(values), values,
-                               _REDUCE[op], include_self=True)
+    out.scatter_reduce_(0, index.expand_as(x), x, _REDUCE[op],
+                        include_self=True)
+    return order_key(out).view(torch.float32) if keyed else out
 
 
 def cumsum_ref(x: torch.Tensor) -> torch.Tensor:

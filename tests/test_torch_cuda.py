@@ -23,7 +23,8 @@ from repro_torch.kernels.flash_attn import (flash_attention_cuda,
                                             tensor_core_route)
 from repro_torch.kernels.onehot_segsum import (emulate, onehot_segsum_cuda,
                                                plan_for, scratch_bytes)
-from repro_torch.kernels.segsum import cumsum_cuda, segreduce_sorted_cuda
+from repro_torch.kernels.segsum import (TILE_ROWS, cumsum_cuda, route,
+                                       segreduce_sorted_cuda)
 from repro_torch.kernels.spmm import bucket_spmm_cuda
 
 pytestmark = pytest.mark.cuda
@@ -67,6 +68,135 @@ def test_kernel_wrapper_validates_on_card(cuda):
         segreduce_sorted_cuda(v, ids[:3], 2)
     out = segreduce_sorted_cuda(v, ids, 0)
     assert out.shape == (0, 2)
+
+
+# --- the tiled route: order-free folds at the layouts that could stall it ----
+
+ORDER_FREE = [("max", torch.float32), ("min", torch.float32),
+              ("max", torch.int32), ("min", torch.int32), ("sum", torch.int32)]
+
+
+def _ids_from_starts(starts, spacing=1, head=0):
+    starts = starts.copy()
+    if starts.size:
+        starts[0] = True
+    return (head + (np.cumsum(starts) - 1) * spacing).astype(np.int32)
+
+
+def _tiled_layout(name):
+    """``(ids, nseg)`` of one layout, ``T`` the tiled route's tile rows."""
+    t = TILE_ROWS
+    rng = np.random.default_rng(sorted(TILED_LAYOUTS).index(name))
+
+    def starts(m, p=0.3):
+        return rng.random(m) < p
+
+    if name == "edges":            # runs that end and start at tile edges
+        s = starts(4 * t + 100)
+        s[t] = True                          # one ends at T - 1, one starts at T
+        s[2 * t] = s[2 * t + 1] = True       # a one-row run starting at 2T
+        s[3 * t - 1] = s[3 * t] = True       # a one-row run ending at 3T - 1
+        ids = _ids_from_starts(s, spacing=2)
+    elif name == "inside":         # tiles 1 and 2 wholly inside one segment
+        s = starts(5 * t)
+        s[t // 2: 3 * t + t // 2] = False
+        s[t // 2] = True
+        ids = _ids_from_starts(s)
+    elif name == "all":            # one segment of all M rows, nseg = 1
+        return np.zeros(5 * t + 3, np.int32), 1
+    elif name == "one_row":
+        return np.zeros(1, np.int32), 1
+    elif name == "below_tile":     # M below one tile
+        ids = _ids_from_starts(starts(100), spacing=3)
+    elif name == "ragged":         # M not a multiple of the tile
+        ids = _ids_from_starts(starts(4 * t + 777, 0.6), spacing=2)
+    elif name == "gaps":           # interior gaps longer than a tile
+        ids = _ids_from_starts(starts(3 * t))
+        ids[t + 100:] += 3 * t + 5           # inside tile 1
+        ids[2 * t:] += 5 * t                 # at the edge of tile 2
+    elif name == "head":           # millions of empty segments before ids[0]
+        ids = _ids_from_starts(starts(2 * t + 5), head=2_000_000)
+    elif name == "tail":           # millions of empty segments after the last
+        ids = _ids_from_starts(starts(2 * t + 5))
+        return ids, int(ids[-1]) + 1 + 3_000_000
+    elif name == "empty":          # no rows at all
+        return np.zeros(0, np.int32), 10
+    return ids, int(ids[-1]) + 1 + 7
+
+
+TILED_LAYOUTS = ["edges", "inside", "all", "one_row", "below_tile", "ragged",
+                 "gaps", "head", "tail", "empty"]
+
+
+def _order_free_values(ids, d, op, dtype, seed):
+    """f32: normal values with ±0 ties and ±inf, NaN in some segments (ids
+    = 1 mod 3); int32: the full range for sums (so they wrap), small values
+    and both extremes for max/min."""
+    rng = np.random.default_rng(seed)
+    m = ids.shape[0]
+    if dtype == torch.float32:
+        v = rng.normal(size=(m, d)).astype(np.float32)
+        pick = rng.random((m, d))
+        v[pick < 0.05] = -0.0
+        v[(pick >= 0.05) & (pick < 0.1)] = 0.0
+        v[(pick >= 0.1) & (pick < 0.12)] = np.inf
+        v[(pick >= 0.12) & (pick < 0.14)] = -np.inf
+        v[(pick >= 0.14) & (pick < 0.15) & (ids[:, None] % 3 == 1)] = np.nan
+    elif op == "sum":
+        v = rng.integers(-2**31, 2**31, (m, d), dtype=np.int64).astype(np.int32)
+    else:
+        v = rng.integers(-1000, 1000, (m, d)).astype(np.int32)
+        v[rng.random((m, d)) < 0.01] = np.iinfo(np.int32).min
+        v[rng.random((m, d)) < 0.01] = np.iinfo(np.int32).max
+    return torch.from_numpy(v)
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", TILED_LAYOUTS)
+@pytest.mark.parametrize("op,dtype", ORDER_FREE)
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_tiled_kernel_equals_plain(cuda, layout, op, dtype, d):
+    """The tiled route, bit for bit (NaN bits included) the plain version
+    on a CPU copy, at every layout of ``_tiled_layout``."""
+    assert route(op, dtype) == "tiled"
+    ids, nseg = _tiled_layout(layout)
+    v = _order_free_values(ids, d, op, dtype, seed=d)
+    ids_t = torch.from_numpy(ids)
+    before = segreduce_sorted_cuda.launches
+    got = ops.segreduce_sorted(v.to(cuda), ids_t.to(cuda), nseg, op=op).cpu()
+    assert segreduce_sorted_cuda.launches == before + 1
+    want = ref.segreduce_sorted_ref(v, ids_t, nseg, op=op)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("op,dtype", ORDER_FREE)
+def test_tiled_kernel_same_bits_twice(cuda, op, dtype):
+    """Two launches on the same inputs give the same bits (the atomics on
+    crossing segments are exact in any order)."""
+    ids, nseg = _tiled_layout("inside")
+    v = _order_free_values(ids, 2, op, dtype, seed=5).to(cuda)
+    ids_t = torch.from_numpy(ids).to(cuda)
+    a = ops.segreduce_sorted(v, ids_t, nseg, op=op)
+    b = ops.segreduce_sorted(v, ids_t, nseg, op=op)
+    assert _same_bits(a.cpu(), b.cpu())
+
+
+def test_tiled_kernel_signed_zero_and_nan(cuda):
+    """The reference's IEEE max/min on the card: [-0, +0 | +0, -0 | 1, NaN
+    | 2, NaN] gives max [+0, +0, nan, nan] and min [-0, -0, nan, nan]."""
+    v = torch.tensor([-0.0, 0.0, 0.0, -0.0, 1.0, float("nan"), 2.0,
+                      float("nan")])
+    ids = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], dtype=torch.int32)
+    for op in ("max", "min"):
+        got = ops.segreduce_sorted(v.to(cuda), ids.to(cuda), 5, op=op).cpu()
+        assert _same_bits(got, ref.segreduce_sorted_ref(v, ids, 5, op=op))
+        assert bool(torch.signbit(got[:2]).all()) == (op == "min")
+        assert bool(torch.isnan(got[2:4]).all())
 
 
 @pytest.mark.parametrize("make", [
