@@ -13,16 +13,23 @@ result line):
    uses, with empty segments, the graph's hub segments and a 96-row
    in-order fold; one segment of all M rows; the run-field layout (ids
    ``0..n_runs-1`` over ``m_cap`` slots, an empty tail of tens of millions
-   of segments); a small case of ±0 ties and NaNs.  Exactness is required
+   of segments); a small case of ±0 ties and NaNs; an f32 sum with one
+   segment of 2^22 rows (about 2,048 tiles handing a carry on) among the
+   src segments.  Exactness is required
    bit for bit (int32 bits of float32, NaN bits included).  f32 sums and
    the ±0/NaN case are held against the plain version run on a CPU copy of
    the same inputs, because on CUDA the plain version's ``index_add_`` is
    atomic and folds in no fixed order; the other max/min and int32 results
    are held against the plain version on the card, which is exact in any
    order there.  Prints each case's route (``in-order`` or ``tiled``,
-   ``kernels/segsum.py:route``), median time, byte bound, the plain
-   version's time and the library call's (``index_add_`` /
-   ``scatter_reduce_``), which the port never calls.
+   ``kernels/segsum.py:route``), median time, byte bound (and for the
+   in-order route the chain bound: the longest segment's rows times 4
+   cycles of dependent float adds at the card's maximum SM clock, and the
+   kernel's time on that segment alone), the
+   plain version's time and the library call's (``index_add_`` /
+   ``scatter_reduce_``), which the port never calls.  Then the fixed-order
+   flat sum of the three decision sums (``ops.sum_inorder``) on the graph's
+   edge weights, bit for bit between the card and the CPU.
 3. End to end, small: ``detect()`` on the card and on the CPU give equal
    labels and zero disconnected communities.
 4. End to end, full size: ``detect()`` with default options on
@@ -71,6 +78,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 REPLACES = "src/repro/kernels/segsum.py:130"   # segscan_blocked -> pallas_call
 SOURCE = "src/repro_torch/kernels/csrc/segreduce.cu"
+FADD_CYCLES = 4                  # latency of a dependent float32 add, cycles
 REPS = 10                        # timed calls per kernel measurement
 SLOW_MS = 1000.0                 # ... or SLOW_REPS where one call is slower
 SLOW_REPS = 3
@@ -86,6 +94,24 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock (``nvidia-smi clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def longest_segment(ids) -> tuple[int, int]:
+    """First row and rows of the longest run of equal ids."""
+    import torch
+
+    counts = torch.unique_consecutive(ids, return_counts=True)[1]
+    k = int(counts.argmax())
+    return int(counts[:k].sum()), int(counts[k])
 
 
 def median_ms(fn, reps: int = REPS) -> float:
@@ -182,6 +208,12 @@ def kernel_phase(g) -> dict:
     m = g.m_cap
     src = g.src
     rid = run_lengths_ids(m, 150_000, dev)
+    # one segment of 2^22 rows among the src segments, starting mid-tile
+    long_rows = min(2**22, m // 2)
+    a = m // 3
+    long_src = src.clone()
+    long_src[a: a + long_rows] = src[a]
+    clock_mhz = max_sm_clock_mhz()
     hub = int(torch.diff(torch.searchsorted(
         src, torch.arange(g.nv + 1, dtype=torch.int32, device=dev))).max())
     log(f"  rows M={m}  segments by src nv={g.nv}  largest src segment "
@@ -219,6 +251,8 @@ def kernel_phase(g) -> dict:
          "slots, empty tail)", i32(0, g.nv).repeat(1, 2), fid, m, "sum"),
         ("max f32 D=2 (±0 ties and NaN, 10,000 rows)",
          special_values(small, 2, gen).to(dev), sid, 1600, "max"),
+        (f"sum f32 D=1 (a {long_rows}-row segment among the src segments)",
+         f32(1), long_src, g.nv, "sum"),
     ]
     variants, worst = [], 0.0
     for name, v, ids, nseg, op in cases:
@@ -248,13 +282,35 @@ def kernel_phase(g) -> dict:
                 0, idx, v, "amax" if op == "max" else "amin")
         library_ms = median_ms(lib)
         nbytes = v.numel() * 4 + ids.numel() * 4 + nseg * v.shape[1] * 4
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        variants.append(dict(case=name, route=how, rows=v.shape[0],
-                             segments=nseg, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             library_ms=library_ms))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        variant = dict(case=name, route=how, rows=v.shape[0], segments=nseg,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bytes_ms, bound_by="bytes",
+                       library_ms=library_ms)
+        chain = ""
+        if how == "in-order":
+            # a segment's adds depend on each other: its rows x the add's
+            # latency, at the card's top clock, however the rows are split;
+            # and the kernel's time on that segment alone, its carry chain
+            first, rows = longest_segment(ids)
+            chain_ms = rows * FADD_CYCLES / (clock_mhz * 1e6) * 1e3
+            alone = v[first: first + rows].contiguous()
+            one = torch.zeros(rows, dtype=torch.int32, device=dev)
+            alone_ms = median_ms(
+                lambda: ops.segreduce_sorted(alone, one, 1, op=op))
+            del alone, one
+            variant.update(bytes_bound_ms=bytes_ms, chain_bound_ms=chain_ms,
+                           longest_segment=rows, sm_clock_mhz=clock_mhz,
+                           longest_alone_ms=alone_ms,
+                           bound_ms=max(bytes_ms, chain_ms),
+                           bound_by="bytes" if bytes_ms >= chain_ms
+                           else "operations")
+            chain = (f"  chain_bound_ms={chain_ms:.4f} ({rows} rows x "
+                     f"{FADD_CYCLES} cycles at {clock_mhz:.0f} MHz)  "
+                     f"longest_alone_ms={alone_ms:.4f}")
+        variants.append(variant)
         log(f"  {name} [{how}]: bit-identical  ms={ms:.4f}  "
-            f"bound_ms={bound_ms:.4f}  plain_ms={plain_ms:.4f}  "
+            f"bytes_bound_ms={bytes_ms:.4f}{chain}  plain_ms={plain_ms:.4f}  "
             f"library_ms={library_ms:.4f}")
         del got, got_c, want, out
 
@@ -275,11 +331,21 @@ def kernel_phase(g) -> dict:
         raise AssertionError("96-row in-order fold differs")
     log("  96-row in-order fold: exact")
 
+    # the decision sums' fixed order (2m here): the same bits on both devices
+    two_m = ops.sum_inorder(g.w)
+    two_m_cpu = ops.sum_inorder(g.w.cpu())
+    if not torch.equal(two_m.cpu().view(torch.int32), two_m_cpu.view(torch.int32)):
+        raise AssertionError(f"sum_inorder(g.w): card {float(two_m)} != CPU "
+                             f"{float(two_m_cpu)}")
+    log(f"  sum_inorder(g.w) = 2m: card == CPU bit for bit ({float(two_m)}; "
+        f"exact {float(g.w.double().sum())}, torch.sum on the card "
+        f"{float(g.w.sum())})")
+
     head = variants[0]
     entry = dict(name="segreduce_sorted", route="cuda", source=SOURCE,
                  replaces=REPLACES, launches=0, max_abs_err=worst,
                  ms=head["ms"], plain_ms=head["plain_ms"],
-                 bound_ms=head["bound_ms"], bound_by="bytes",
+                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                  library_ms=head["library_ms"], variants=variants)
     return entry
 

@@ -14,8 +14,12 @@ Every reduction that feeds a move or a convergence decision folds in index
 order: the sorted ones through the segment-reduce kernel, the Sigma
 recompute keyed by the unsorted ``C_new`` through a stable sort and the
 same kernel (``ops.segment_sum_inorder``).  The two flat sums of
-:func:`realized_modularity` follow torch's reduction order; with integer
-weights they are exact below 2**24.
+:func:`realized_modularity`, which feed the best-Q and convergence tests,
+and 2m (``Graph.total_weight_2m``), which scales every Eq.-2 score, are
+two-level in-order folds (``ops.sum_inorder``): the same bits on the card
+and on the CPU.  They round like any float32 sum once they pass 2**24, so
+they need not equal the reference's ``jnp.sum``, which folds in another
+order.
 """
 from __future__ import annotations
 
@@ -52,10 +56,10 @@ def _hash_parity(ids: torch.Tensor, it: int) -> torch.Tensor:
 
 def realized_modularity(src, dst, w, C, Sigma, two_m) -> torch.Tensor:
     """Q of the current partition: two flat reductions (internal edge
-    weight, sum of Sigma^2)."""
+    weight, sum of Sigma^2), each in one fixed order on every device."""
     w_in = torch.where(C[src] == C[dst], w, 0.0)
-    internal = torch.sum(w_in)
-    sig2 = torch.sum(Sigma * Sigma)
+    internal = ops.sum_inorder(w_in)
+    sig2 = ops.sum_inorder(Sigma * Sigma)
     return internal / two_m - sig2 / (two_m * two_m)
 
 

@@ -77,8 +77,9 @@ class Graph:
         return ops.segreduce_sorted(self.w, self.src, self.nv, op="sum")
 
     def total_weight_2m(self) -> torch.Tensor:
-        """2m = sum of all directed edge weights (padding contributes 0)."""
-        return torch.sum(self.w)
+        """2m = sum of all directed edge weights (padding contributes 0), in
+        one fixed order on every device (``ops.sum_inorder``)."""
+        return ops.sum_inorder(self.w)
 
     def __repr__(self) -> str:
         return f"Graph(n_cap={self.n_cap}, m_cap={self.m_cap})"

@@ -12,7 +12,8 @@
 * ``ref``           — the plain versions (the CPU path, and the yardstick
   the kernels are held against on the card).
 * ``ops``           — the dispatch point, by device: ``segreduce_sorted``,
-  ``segment_sum_inorder``, ``cumsum``, ``segsum_sorted``, ``segsum``,
+  ``segment_sum_inorder``, ``sum_inorder`` (a flat float32 sum in one fixed
+  order on every device), ``cumsum``, ``segsum_sorted``, ``segsum``,
   ``spmm``, ``flash_attention``.
 """
 from repro_torch.kernels import ops, ref

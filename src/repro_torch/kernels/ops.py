@@ -12,8 +12,10 @@ backends agree bit for bit, and with them every delta-modularity tie-break
 and partition.  The f32 sum folds every segment strictly in index order.
 Max, min (the reference's IEEE maximum/minimum: -0 below +0, NaN
 absorbing) and the int32 sum (wrapping) are exact in any order, so the
-kernel reduces them in a tree and still gives the same bits.  The other
-functions are held to the reference within stated tolerances.
+kernel reduces them in a tree and still gives the same bits.
+:func:`sum_inorder` builds a flat sum in one fixed order on top of it, the
+same on every device.  The other functions are held to the reference
+within stated tolerances.
 """
 from __future__ import annotations
 
@@ -65,6 +67,31 @@ def segment_sum_inorder(values: torch.Tensor, ids: torch.Tensor,
     """
     s_ids, perm = torch.sort(ids, stable=True)
     return segreduce_sorted(values[perm], s_ids, num_segments, op="sum")
+
+
+FLAT_CHUNK = 1024   # values that one in-order fold of sum_inorder takes
+
+
+def sum_inorder(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of ``x [M]`` in one fixed order on every device.
+
+    A tree of in-order folds, :data:`FLAT_CHUNK` wide: each level folds
+    chunks of ``FLAT_CHUNK`` consecutive values in index order from +0.0
+    (keyed by ``arange // FLAT_CHUNK``), until one value is left.  Every
+    level goes through :func:`segreduce_sorted`, so the card's kernel and
+    the CPU's plain version give the same bits; ``torch.sum`` is a tree
+    whose shape depends on the device.  Partial sums stay small, so the
+    result stays close to the exact sum: a flat fold, or two levels at
+    scale 21, folds tens of thousands of values into one float32 that has
+    passed 2**24 and drifts by hundreds of ulps.  An empty ``x`` sums to
+    +0.0.  Returns a 0-dim tensor on ``x``'s device.
+    """
+    while True:
+        m = x.shape[0]
+        chunk = torch.arange(m, dtype=torch.int32, device=x.device) // FLAT_CHUNK
+        x = segreduce_sorted(x, chunk, max(-(-m // FLAT_CHUNK), 1), op="sum")
+        if x.shape[0] == 1:
+            return x[0]
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:

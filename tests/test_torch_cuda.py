@@ -15,6 +15,7 @@ attention, on both routes of ``kernels/flash_attn.py:tensor_core_route``.
 import numpy as np
 import pytest
 import torch
+from _torch_layouts import INORDER_LAYOUTS, TILED_LAYOUTS, tiled_layout
 
 from repro_torch.core import detect
 from repro_torch.graph import rmat_graph, sbm_graph
@@ -23,8 +24,8 @@ from repro_torch.kernels.flash_attn import (flash_attention_cuda,
                                             tensor_core_route)
 from repro_torch.kernels.onehot_segsum import (emulate, onehot_segsum_cuda,
                                                plan_for, scratch_bytes)
-from repro_torch.kernels.segsum import (TILE_ROWS, cumsum_cuda, route,
-                                       segreduce_sorted_cuda)
+from repro_torch.kernels.segsum import (cumsum_cuda, emulate_inorder,
+                                       route, segreduce_sorted_cuda)
 from repro_torch.kernels.spmm import bucket_spmm_cuda
 
 pytestmark = pytest.mark.cuda
@@ -76,58 +77,6 @@ ORDER_FREE = [("max", torch.float32), ("min", torch.float32),
               ("max", torch.int32), ("min", torch.int32), ("sum", torch.int32)]
 
 
-def _ids_from_starts(starts, spacing=1, head=0):
-    starts = starts.copy()
-    if starts.size:
-        starts[0] = True
-    return (head + (np.cumsum(starts) - 1) * spacing).astype(np.int32)
-
-
-def _tiled_layout(name):
-    """``(ids, nseg)`` of one layout, ``T`` the tiled route's tile rows."""
-    t = TILE_ROWS
-    rng = np.random.default_rng(sorted(TILED_LAYOUTS).index(name))
-
-    def starts(m, p=0.3):
-        return rng.random(m) < p
-
-    if name == "edges":            # runs that end and start at tile edges
-        s = starts(4 * t + 100)
-        s[t] = True                          # one ends at T - 1, one starts at T
-        s[2 * t] = s[2 * t + 1] = True       # a one-row run starting at 2T
-        s[3 * t - 1] = s[3 * t] = True       # a one-row run ending at 3T - 1
-        ids = _ids_from_starts(s, spacing=2)
-    elif name == "inside":         # tiles 1 and 2 wholly inside one segment
-        s = starts(5 * t)
-        s[t // 2: 3 * t + t // 2] = False
-        s[t // 2] = True
-        ids = _ids_from_starts(s)
-    elif name == "all":            # one segment of all M rows, nseg = 1
-        return np.zeros(5 * t + 3, np.int32), 1
-    elif name == "one_row":
-        return np.zeros(1, np.int32), 1
-    elif name == "below_tile":     # M below one tile
-        ids = _ids_from_starts(starts(100), spacing=3)
-    elif name == "ragged":         # M not a multiple of the tile
-        ids = _ids_from_starts(starts(4 * t + 777, 0.6), spacing=2)
-    elif name == "gaps":           # interior gaps longer than a tile
-        ids = _ids_from_starts(starts(3 * t))
-        ids[t + 100:] += 3 * t + 5           # inside tile 1
-        ids[2 * t:] += 5 * t                 # at the edge of tile 2
-    elif name == "head":           # millions of empty segments before ids[0]
-        ids = _ids_from_starts(starts(2 * t + 5), head=2_000_000)
-    elif name == "tail":           # millions of empty segments after the last
-        ids = _ids_from_starts(starts(2 * t + 5))
-        return ids, int(ids[-1]) + 1 + 3_000_000
-    elif name == "empty":          # no rows at all
-        return np.zeros(0, np.int32), 10
-    return ids, int(ids[-1]) + 1 + 7
-
-
-TILED_LAYOUTS = ["edges", "inside", "all", "one_row", "below_tile", "ragged",
-                 "gaps", "head", "tail", "empty"]
-
-
 def _order_free_values(ids, d, op, dtype, seed):
     """f32: normal values with ±0 ties and ±inf, NaN in some segments (ids
     = 1 mod 3); int32: the full range for sums (so they wrap), small values
@@ -162,9 +111,9 @@ def _same_bits(a, b):
 @pytest.mark.parametrize("d", [1, 2, 3])
 def test_tiled_kernel_equals_plain(cuda, layout, op, dtype, d):
     """The tiled route, bit for bit (NaN bits included) the plain version
-    on a CPU copy, at every layout of ``_tiled_layout``."""
+    on a CPU copy, at every layout of ``_torch_layouts.tiled_layout``."""
     assert route(op, dtype) == "tiled"
-    ids, nseg = _tiled_layout(layout)
+    ids, nseg = tiled_layout(layout)
     v = _order_free_values(ids, d, op, dtype, seed=d)
     ids_t = torch.from_numpy(ids)
     before = segreduce_sorted_cuda.launches
@@ -178,7 +127,7 @@ def test_tiled_kernel_equals_plain(cuda, layout, op, dtype, d):
 def test_tiled_kernel_same_bits_twice(cuda, op, dtype):
     """Two launches on the same inputs give the same bits (the atomics on
     crossing segments are exact in any order)."""
-    ids, nseg = _tiled_layout("inside")
+    ids, nseg = tiled_layout("inside")
     v = _order_free_values(ids, 2, op, dtype, seed=5).to(cuda)
     ids_t = torch.from_numpy(ids).to(cuda)
     a = ops.segreduce_sorted(v, ids_t, nseg, op=op)
@@ -197,6 +146,76 @@ def test_tiled_kernel_signed_zero_and_nan(cuda):
         assert _same_bits(got, ref.segreduce_sorted_ref(v, ids, 5, op=op))
         assert bool(torch.signbit(got[:2]).all()) == (op == "min")
         assert bool(torch.isnan(got[2:4]).all())
+
+
+# --- the in-order route: the f32 sum, carried from tile to tile --------------
+
+def _inorder_values(ids, d, seed, inf_nan=True):
+    """float32 normal values with ±0 and subnormals mixed in, and with
+    ``inf_nan`` ±inf and NaN too."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(ids.shape[0], d)).astype(np.float32)
+    pick = rng.random(v.shape)
+    v[pick < 0.05] = -0.0
+    v[(pick >= 0.05) & (pick < 0.08)] = 0.0
+    sub = (pick >= 0.2) & (pick < 0.4)
+    v[sub] = (np.float32(1e-40) * rng.integers(-64, 65, v.shape))[sub]
+    if inf_nan:
+        v[(pick >= 0.08) & (pick < 0.09)] = np.inf
+        v[(pick >= 0.09) & (pick < 0.10)] = -np.inf
+        v[(pick >= 0.10) & (pick < 0.105)] = np.nan
+    return torch.from_numpy(v)
+
+
+def _same_bits_any_nan(a, b):
+    """Equal float32 bits, NaN matching NaN of any payload (the card's
+    adds give the canonical NaN, the CPU's keep an operand's payload)."""
+    nan = torch.isnan(a) & torch.isnan(b)
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | nan).all())
+
+
+@pytest.mark.parametrize("layout", INORDER_LAYOUTS)
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_inorder_kernel_equals_plain(cuda, layout, d):
+    """The in-order route, bit for bit the plain version's left fold on a
+    CPU copy, at every layout and the multi-tile hub; two launches give the
+    same bits, each counted once."""
+    assert route("sum", torch.float32) == "in-order"
+    ids, nseg = tiled_layout(layout)
+    v = _inorder_values(ids, d, seed=d)
+    ids_t = torch.from_numpy(ids)
+    vc, ic = v.to(cuda), ids_t.to(cuda)
+    before = segreduce_sorted_cuda.launches
+    a = ops.segreduce_sorted(vc, ic, nseg, op="sum").cpu()
+    b = ops.segreduce_sorted(vc, ic, nseg, op="sum").cpu()
+    assert segreduce_sorted_cuda.launches == before + 2
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = ref.segreduce_sorted_ref(v, ids_t, nseg, op="sum")
+    assert _same_bits_any_nan(a, want)
+
+
+def test_inorder_kernel_finite_bits_exact(cuda):
+    """Without inf or NaN, every bit is the plain version's and the plan
+    emulation's (``segsum.emulate_inorder``), subnormals and ±0 included;
+    a segment of -0.0 rows sums to +0.0."""
+    ids, nseg = tiled_layout("hub")
+    ids = np.concatenate([np.zeros(5, np.int32), ids + 1])
+    v = _inorder_values(ids, 2, seed=4, inf_nan=False)
+    v[:5] = -0.0
+    ids_t = torch.from_numpy(ids)
+    got = ops.segreduce_sorted(v.to(cuda), ids_t.to(cuda), nseg + 1).cpu()
+    for want in (ref.segreduce_sorted_ref(v, ids_t, nseg + 1),
+                 emulate_inorder(v, ids, nseg + 1)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not bool(torch.signbit(got[0]).any())
+
+
+def test_sum_inorder_card_equals_cpu(cuda):
+    """``ops.sum_inorder`` gives the same bits on the card and on the CPU."""
+    x = torch.from_numpy((np.random.default_rng(3).normal(size=300_001) *
+                          1e3).astype(np.float32))
+    assert torch.equal(ops.sum_inorder(x.to(cuda)).cpu().view(torch.int32),
+                       ops.sum_inorder(x).view(torch.int32))
 
 
 @pytest.mark.parametrize("make", [

@@ -1,5 +1,5 @@
 """The port's ``segreduce_sorted`` max/min against the reference's IEEE
-semantics, bit for bit.
+semantics, and its f32 sum's signed zeros, bit for bit.
 
 ``repro.kernels.ops.segreduce_sorted`` folds f32 max/min with
 ``jnp.maximum``/``jnp.minimum`` (``impl="xla"``, and the Pallas kernel run
@@ -10,8 +10,11 @@ min is -0 when it holds any -0; a NaN anywhere in a segment makes it NaN.
 version of the CUDA kernel (``kernels/ref.py``), which the card holds the
 kernel to bit for bit.  Inputs: fixed cases (±0 ties in both orders, a NaN
 alone and among finite values, ±inf, empty segments) and draws from a
-numpy seed over a pool of such values, at D = 1 and 2.  Comparison: the
-int32 bits, with NaN equal to NaN whatever its payload; no tolerance.
+numpy seed over a pool of such values, at D = 1 and 2.  The f32 sum folds
+from +0.0 in the reference (the Pallas scan restarts a run at the identity
+0.0, and ``jax.ops.segment_sum`` starts from zeros), so -0.0 as a segment's
+first row, or as all of its rows, gives +0.0.  Comparison: the int32 bits,
+with NaN equal to NaN whatever its payload; no tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -123,3 +126,19 @@ def test_int32_sum_wraps_as_the_reference():
     got = tops.segreduce_sorted(torch.from_numpy(v), torch.from_numpy(ids),
                                 6, op="sum").numpy()
     assert got[0] == np.iinfo(np.int32).min and got[1] == -2
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_f32_sum_signed_zero(d):
+    """-0.0 as a segment's only row, as all of its rows, and as its first
+    row before +0.0, -0.0 or a finite value; an empty segment gives +0.0."""
+    rows = [(0, [-0.0]), (1, [-0.0, -0.0, -0.0]), (2, [-0.0, 0.0]),
+            (3, [-0.0, 1.5]), (5, [-0.0, -2.0, 2.0]), (6, [0.0, -0.0])]
+    ids = np.array([s for s, vs in rows for _ in vs], np.int32)
+    col = np.array([x for _, vs in rows for x in vs], np.float32)
+    v = col if d == 1 else np.stack([col, -col], axis=1)
+    _assert_reference_bits(v, ids, 8, "sum")
+    got = tops.segreduce_sorted(torch.from_numpy(v), torch.from_numpy(ids), 8,
+                                op="sum").numpy()
+    zeros = got[[0, 1, 2, 4, 5, 6, 7]]
+    assert (zeros == 0).all() and not np.signbit(zeros).any()
