@@ -7,7 +7,9 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``.
+   and the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   (ptxas registers, shared memory and spills of the tensor-core flash,
+   cumsum and spmm kernels).
 2. Kernel vs plain, on the card, at the main path's sizes (the edge arrays
    of the full-size graph of phase 4): every (op, dtype, D) the main path
    uses, with empty segments, the graph's hub segments and a 96-row
@@ -52,14 +54,16 @@ result line):
    attention, whose inputs also go through once as float32 at 2e-5;
    ``segsum`` bit for bit across two launches, and at the Sigma recompute's
    shape bit for bit the CPU emulation of its fold order
-   (``kernels/onehot_segsum.py:emulate``).  Both flash cases are
+   (``kernels/onehot_segsum.py:emulate``); ``spmm`` beside the bytes its
+   gathers move through L2.  Both flash cases are
    bf16 and must go through the tensor-core kernel (``flash_fwd_wgmma``):
    the flash entry counts launches by route.  Then the median time of
    each case, its bound, the plain version's time and one PyTorch call's.
 
 ``--profile`` adds a traced run of phase 4 (device time by kernel, the
-device's busy share, and each segment-reduce kernel's total) and, in phase 5, three traced calls of each
-``segsum`` case (device time a launch by kernel).  The second-to-last lines are
+device's busy share, and each segment-reduce kernel's total) and, in phase
+5, three traced calls of each ``segsum``, ``cumsum`` and ``spmm`` case
+(device time a call by kernel).  The second-to-last lines are
 one JSON object for the kernels (``kernels``) and the card line; the last
 line is the result object.
 """
@@ -67,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -369,23 +374,48 @@ TENSOR_CORE_KERNEL = "flash_fwd_wgmma"
 SIGMA_CASE = "segsum K by labels (Sigma recompute)"
 
 
+# (source, kernel) whose ptxas report phase 1 prints, one line an instance
+PTXAS_KERNELS = (("flash_attn", TENSOR_CORE_KERNEL), ("cumsum", "cumsum_rows"),
+                 ("cumsum", "cumsum_cols"), ("spmm", "bucket_spmm_kernel"))
+
+
+def demangle(names: list[str]) -> list[str]:
+    """``names`` (mangled) through the CUDA toolkit's ``cu++filt``; as
+    they were where it cannot run."""
+    from repro_torch.kernels import _build
+
+    try:
+        filt = os.path.join(os.path.dirname(_build.nvcc_path()), "cu++filt")
+        out = subprocess.run([filt], input="\n".join(names), text=True,
+                             capture_output=True, check=True).stdout
+    except (RuntimeError, OSError, subprocess.CalledProcessError):
+        return names
+    lines = out.splitlines()
+    if len(lines) != len(names):
+        return names
+    return [line.removeprefix("void ").replace("<unnamed>::", "")
+            for line in lines]
+
+
 def ptxas_lines(report: str, kernel: str) -> list[str]:
     """One line for each entry function of an ``nvcc -Xptxas -v`` report
-    whose (mangled) name contains ``kernel``: its template arguments, then
-    what ptxas says of registers, shared memory, stack and spills."""
+    whose (mangled) name contains ``kernel``: its demangled signature,
+    then what ptxas says of registers, shared memory, stack and spills."""
     entries, cur = [], None
     for line in report.splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
             cur = None
-            if kernel in line:
-                m = re.search(kernel + r"I\d+(\w+?)Li(\d+)E", line)
-                cur = [f"{kernel}<{m[1]}, {m[2]}>" if m else kernel]
+            m = re.search(r"entry function '(\w+)'", line)
+            if m and kernel in m[1]:
+                cur = [m[1]]
                 entries.append(cur)
         elif cur is not None and "Function properties" not in line and \
                 "Compile time" not in line:
             cur.append(line.removeprefix("ptxas info    : "))
-    return [": ".join((e[0], "; ".join(e[1:]))) for e in entries]
+    names = demangle([e[0] for e in entries]) if entries else []
+    return [": ".join((name, "; ".join(e[1:])))
+            for name, e in zip(names, entries)]
 
 
 def api_wrappers() -> dict:
@@ -486,11 +516,15 @@ def check_case(kernel, name, op, args, kw, got
         # [M, D] array takes a path seconds slow (PERF.md)
         xt = x2.double().t().contiguous()
         exact = torch.cumsum(xt, 1).t()
-        depth = 64 + -(-x2.shape[0] // 2**20)       # csrc/cumsum.cu
+        # the bound of the earlier three-pass design, kept (csrc/cumsum.cu)
+        depth = 64 + -(-x2.shape[0] // 2**20)
         tol = depth * U32 * torch.cumsum(xt.abs(), 1).t()
         del xt
         err = (got.reshape(x2.shape).double() - exact).abs()
         del exact
+        log(f"    rounding depth seen: largest |err| / (2^-24 * prefix of "
+            f"|x|) = {float((err / tol.clamp_min(1e-300)).max()) * depth} "
+            f"(csrc/cumsum.cu: at most 19 to first order)")
         stated = f"|err| <= {depth} * 2^-24 * prefix of |x| (vs float64)"
         plain = ref.cumsum_ref
     elif kernel == "cumsum":
@@ -669,7 +703,8 @@ def device_time_by_kernel(fn, calls: int = 3) -> str:
 def api_phase(g, labels, profile=False) -> list[dict]:
     """Phase 5: the kernel API through ``repro_torch.kernels.ops`` at
     full-width shapes; returns the kernels' JSON entries.  With
-    ``profile``, each ``segsum`` case is traced three times more."""
+    ``profile``, each ``segsum``, ``cumsum`` and ``spmm`` case is traced
+    three times more."""
     import torch
 
     from repro_torch.kernels.flash_attn import (launch_kernel,
@@ -722,9 +757,16 @@ def api_phase(g, labels, profile=False) -> list[dict]:
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=library_ms,
                        library=lib_name)
-        if profile and kernel == "onehot_segsum":
-            log(f"    traced calls, device time a launch by kernel: "
+        if profile and kernel in ("onehot_segsum", "cumsum", "bucket_spmm"):
+            log(f"    traced calls, device time a call by kernel: "
                 f"{device_time_by_kernel(lambda: op(*args, **kw))}")
+        if kernel == "bucket_spmm":
+            nbr, _, x = args
+            variant["gathered_bytes"] = nbr.numel() * x.shape[1] * \
+                x.element_size()
+            log(f"    gathered through L2: {variant['gathered_bytes'] / 1e9} "
+                f"GB (N*K*D*sizeof(x); the bound counts each named row of x "
+                f"once)")
         if kernel == "flash_attention":
             # the CUDA-core kernel on the same inputs, for comparison on
             # this card (uncounted: not the path's launch)
@@ -808,7 +850,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after phase 4, run detect() once more under "
                     "torch.profiler and print device time by kernel; trace "
-                    "one call of each segsum case of phase 5 too")
+                    "calls of each segsum, cumsum and spmm case of phase 5 "
+                    "too")
     args = ap.parse_args(argv)
 
     import torch
@@ -838,10 +881,10 @@ def main(argv=None) -> int:
     for name, rep in reports.items():
         for line in rep.strip().splitlines():
             log(f"    [{name}] {line}")
-    for line in ptxas_lines(reports.get("flash_attn", ""),
-                            TENSOR_CORE_KERNEL) or [
-            "flash_attn cached: no build report in this run"]:
-        log(f"  ptxas: {line}")
+    for source, kernel in PTXAS_KERNELS:
+        for line in ptxas_lines(reports.get(source, ""), kernel) or [
+                f"{source} cached: no build report in this run"]:
+            log(f"  ptxas: {line}")
 
     t0 = time.perf_counter()
     g = rmat_graph(scale=args.scale, edge_factor=16, seed=1, device="cuda")

@@ -100,14 +100,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(name: str, symbol: str, argtypes):
-    """``symbol`` of ``csrc/<name>.cu`` as a ctypes function returning int
-    (0, or the ``cudaError_t`` of a refused launch), built at first use."""
+def bind(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """``symbol`` of ``csrc/<name>.cu`` as a ctypes function, built at first
+    use; it returns ``restype``, by default int (0, or the ``cudaError_t``
+    of a refused launch)."""
     fn = _bound.get((name, symbol))
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _bound[(name, symbol)] = fn
     return fn
 

@@ -28,6 +28,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// The elements of one 32-bit word (one float32, or two 16-bit values, the
+// lower address in the low half) as float32.
+template <typename T>
+__device__ __forceinline__ void unpack_word(unsigned w, float* f);
+template <>
+__device__ __forceinline__ void unpack_word<float>(unsigned w, float* f) {
+  f[0] = __uint_as_float(w);
+}
+template <>
+__device__ __forceinline__ void unpack_word<__half>(unsigned w, float* f) {
+  f[0] = __half2float(__ushort_as_half(static_cast<unsigned short>(w & 0xffffu)));
+  f[1] = __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16)));
+}
+template <>
+__device__ __forceinline__ void unpack_word<__nv_bfloat16>(unsigned w, float* f) {
+  f[0] = __uint_as_float(w << 16);            // bfloat16 is float32's top half
+  f[1] = __uint_as_float(w & 0xffff0000u);
+}
+
 // Runs the statements that follow with `T` the type of `code`, or returns
 // cudaErrorInvalidValue from the enclosing function for an unknown code:
 //   FLOAT_DISPATCH(code, T, launch<T>(...));

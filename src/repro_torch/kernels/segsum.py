@@ -33,9 +33,10 @@ dependent float adds along the longest segment (its rows times the add's
 latency), which no order-keeping design can shorten.
 
 ``cumsum_cuda`` replaces ``repro/kernels/segsum.py:cumsum_blocked`` (body
-``_cumsum_kernel``); its carry across blocks becomes a pass over the block
-totals (see ``csrc/cumsum.cu``).  Bound: bytes, ``M*D`` elements read and
-``M*D*4`` bytes written.
+``_cumsum_kernel``); its carry across blocks becomes a one-pass decoupled
+look-back over tiles taken by ticket, with float64 carries (see
+``csrc/cumsum.cu``).  Bound: bytes, ``M*D`` elements read and ``M*D*4``
+bytes written, each once.
 
 ``segreduce_sorted_cuda.launches`` and ``cumsum_cuda.launches`` count kernel
 launches (plain ints): one per call that launches, nowhere else; a call
@@ -245,7 +246,8 @@ def cumsum_cuda(x: torch.Tensor) -> torch.Tensor:
     """Launch the prefix-sum kernel (``csrc/cumsum.cu``): the inclusive sum
     along axis 0 of ``x [M, D]`` (float32/float16/bfloat16, contiguous, on
     CUDA) into float32 ``[M, D]``.  Raises on anything the kernel does not
-    take.  One call launches the kernel's three passes and counts one."""
+    take.  One call zeroes the kernel's status words (``torch.zeros`` on
+    the stream), launches its one scan and counts one."""
     code = _build.float_code(x.dtype)
     if not x.is_cuda:
         raise ValueError("x must lie on a CUDA device")
@@ -261,11 +263,13 @@ def cumsum_cuda(x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
-        rows = _build.bind("cumsum", "cumsum_block_rows", ())()
-        totals = torch.empty((-(-m // rows)) * d, dtype=torch.float32,
-                             device=dev)
+        nbytes = _build.bind("cumsum", "cumsum_scratch_bytes",
+                             (ctypes.c_longlong, ctypes.c_int),
+                             ctypes.c_longlong)(m, d)
+        # the ticket and a status word a tile and channel
+        status = torch.zeros(-(-nbytes // 8), dtype=torch.int64, device=dev)
         err = _build.bind("cumsum", "cumsum_f32", _CUMSUM_ARGS)(
-            x.data_ptr(), out.data_ptr(), totals.data_ptr(), m, d, code,
+            x.data_ptr(), out.data_ptr(), status.data_ptr(), m, d, code,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "cumsum")
     cumsum_cuda.launches += 1

@@ -3,10 +3,12 @@
 ``bucket_spmm_cuda`` replaces the TPU kernel ``repro/kernels/spmm.py:
 bucket_spmm``: ``out[i] = sum_k w[i, k] * x[nbr[i, k]]``.  The TPU kernel
 keeps ``x`` in VMEM (``Nx*D*4 <= 8 MiB``) and gathers by a one-hot matmul;
-on Hopper one warp per output row gathers the rows of ``x`` from device
-memory with coalesced loads and folds the neighbours in order, so any
-``Nx`` is taken.  Bound: bytes, ``N*K*8`` (ids and weights) plus ``N*K*D``
-gathered elements read and ``N*D`` elements written.
+on Hopper one warp per output row loads the row's ids and weights once,
+keeps a group of 8 gathers of rows of ``x`` in flight, and folds the
+neighbours in order, so any ``Nx`` is taken.
+Bound: bytes, ``N*K*8`` (ids and weights) plus the rows of ``x`` that some
+neighbour names read once and ``N*D`` elements written; all ``N*K*D``
+gathered elements pass through L2.
 
 ``bucket_spmm_cuda.launches`` counts kernel launches (a plain int): one per
 launch, nowhere else.
@@ -30,8 +32,9 @@ def bucket_spmm_cuda(nbr: torch.Tensor, w: torch.Tensor,
     gather-and-sum rows of ``x [Nx, D]`` (float32/float16/bfloat16) into
     ``[N, D]`` of ``x``'s type; all contiguous, on one CUDA device.  A
     neighbour outside ``[0, Nx)`` adds 0, as in the TPU kernel's one-hot
-    gather (padding: an in-bounds id with ``w == 0``).  Raises on anything
-    the kernel does not take."""
+    gather (padding: an in-bounds id with ``w == 0``, gathered and
+    multiplied all the same).  Raises on anything the kernel does not
+    take."""
     code = _build.float_code(x.dtype)
     if nbr.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError(f"need int32 nbr and float32 w, got {nbr.dtype} "

@@ -239,9 +239,18 @@ def _f64_prefix_bound(x):
     return depth * 2.0**-24 * torch.cumsum(x.double().abs(), 0)
 
 
-@pytest.mark.parametrize("m,d", [(1, 1), (4097, 1), (100_000, 2),
-                                 (9000, 3)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# the kernel's tiles: 8192 elements of the flat [M*D] array for D in
+# {1, 2, 4}, 128 rows for any other D (csrc/cumsum.cu); each at its edge and
+# one row either side, and about 3M rows, so that thousands of tiles look back
+CUMSUM_SHAPES = [(1, 1), (4097, 1), (100_000, 2), (9000, 3), (5000, 33)] + [
+    (8192 // d + off, d) for d in (1, 2, 4) for off in (-1, 0, 1)] + [
+    (128 + off, 3) for off in (-1, 0, 1)] + [
+    (3_000_001, d) for d in (1, 2, 3, 4)]
+
+
+@pytest.mark.parametrize("m,d", CUMSUM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_cumsum_kernel(cuda, m, d, dtype):
     x = torch.from_numpy(np.random.default_rng(m).normal(size=(m, d))
                          .astype(np.float32)).to(dtype)
@@ -252,6 +261,28 @@ def test_cumsum_kernel(cuda, m, d, dtype):
     want = torch.cumsum(x.double(), 0)
     assert bool(((got.double() - want).abs()
                  <= _f64_prefix_bound(x) + 1e-30).all())
+
+
+def test_cumsum_kernel_back_to_back(cuda):
+    """20 launches in a row on one stream, each on its own zeroed status
+    words and each within the bound; then an input that starts 4 bytes
+    past a 16-byte boundary (scalar loads, the same tiles)."""
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.normal(size=(1_000_003, 2)).astype(np.float32))
+    xs = x.to(cuda)
+    before = cumsum_cuda.launches
+    outs = [ops.cumsum(xs) for _ in range(20)]
+    assert cumsum_cuda.launches == before + 20
+    want = torch.cumsum(x.double(), 0)
+    bound = _f64_prefix_bound(x) + 1e-30
+    for got in outs:
+        assert bool(((got.cpu().double() - want).abs() <= bound).all())
+    flat = torch.from_numpy(rng.normal(size=500_001).astype(np.float32))
+    shifted = flat.to(cuda)[1:]
+    assert shifted.data_ptr() % 16 == 4
+    got = ops.cumsum(shifted).cpu()
+    assert bool(((got.double() - torch.cumsum(flat[1:].double(), 0)).abs()
+                 <= _f64_prefix_bound(flat[1:]) + 1e-30).all())
 
 
 def test_segsum_sorted_on_card(cuda):
@@ -370,22 +401,68 @@ def test_segsum_kernel_channel_limit(cuda):
         ops.segsum(wide, ids.to(cuda), 3)
 
 
-@pytest.mark.parametrize("n,k,nx,d", [(1000, 16, 300, 128),
-                                      (333, 10, 5000, 602), (7, 1, 3, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_spmm_kernel(cuda, n, k, nx, d, dtype):
-    rng = np.random.default_rng(n + k)
+# K across the 32-wide id chunks and the 8-wide gather groups; D across the
+# 128-channel passes (csrc/spmm.cu)
+SPMM_SHAPES = [(1000, 16, 300, 128), (333, 10, 5000, 602), (7, 1, 3, 1)] + [
+    (300, k, 2000, d) for k in (1, 31, 32, 33, 40) for d in (1, 3, 130, 602)]
+
+
+def _spmm_inputs(n, k, nx, d, dtype, seed):
+    rng = np.random.default_rng(seed)
     nbr = torch.from_numpy(rng.integers(0, nx, (n, k)).astype(np.int32))
     w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
     w[torch.from_numpy(rng.random((n, k)) < 0.1)] = 0.0
     x = torch.from_numpy(rng.normal(size=(nx, d)).astype(np.float32)).to(dtype)
+    return nbr, w, x
+
+
+@pytest.mark.parametrize("n,k,nx,d", SPMM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_spmm_kernel(cuda, n, k, nx, d, dtype):
+    nbr, w, x = _spmm_inputs(n, k, nx, d, dtype, n + k)
+    args = (nbr.to(cuda), w.to(cuda), x.to(cuda))
     before = bucket_spmm_cuda.launches
-    got = ops.spmm(nbr.to(cuda), w.to(cuda), x.to(cuda)).cpu()
-    assert bucket_spmm_cuda.launches == before + 1
+    got = ops.spmm(*args)
+    again = ops.spmm(*args)
+    assert bucket_spmm_cuda.launches == before + 2
+    assert torch.equal(got.view(torch.int16 if dtype != torch.float32
+                                else torch.int32),
+                       again.view(torch.int16 if dtype != torch.float32
+                                  else torch.int32))   # the same bits
     want = ref.bucket_spmm_ref(nbr, w, x)
     tol = dict(rtol=2e-5, atol=1e-4) if dtype == torch.float32 \
         else dict(rtol=3e-2, atol=3e-2)
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+
+
+def test_spmm_kernel_gathers_zero_weight_neighbours(cuda):
+    """A NaN and an inf in rows of x that only w == 0 neighbours name: the
+    kernel gathers and multiplies them, so the rows that name them are NaN
+    exactly where the plain version's are."""
+    nbr, w, x = _spmm_inputs(200, 12, 400, 130, torch.float32, 31)
+    x[5, 7] = float("nan")
+    x[9, 100] = float("inf")
+    hit = (nbr == 5) | (nbr == 9)
+    w[hit] = 0.0
+    got = ops.spmm(nbr.to(cuda), w.to(cuda), x.to(cuda)).cpu()
+    want = ref.bucket_spmm_ref(nbr, w, x)
+    assert bool(torch.isnan(want).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4,
+                               equal_nan=True)
+
+
+def test_spmm_kernel_unaligned_x(cuda):
+    """An x that starts 4 bytes past a 16-byte boundary gives the same bits
+    as an aligned copy."""
+    nbr, w, x = _spmm_inputs(500, 16, 300, 128, torch.float32, 7)
+    nbr, w, xc = nbr.to(cuda), w.to(cuda), x.to(cuda)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(xc)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(ops.spmm(nbr, w, shifted), ops.spmm(nbr, w, xc))
 
 
 def test_out_of_range_ids_add_nothing_on_card(cuda):
