@@ -32,13 +32,20 @@ result line):
    ``scatter_reduce_``), which the port never calls.  Then the fixed-order
    flat sum of the three decision sums (``ops.sum_inorder``) on the graph's
    edge weights, bit for bit between the card and the CPU.
-3. End to end, small: ``detect()`` on the card and on the CPU give equal
-   labels and zero disconnected communities.
-4. End to end, full size: ``detect()`` with default options on
-   ``rmat_graph(scale=21, edge_factor=16, seed=1)`` (about 2.1M vertices
-   and 63.5M directed edges, the scale of com-LiveJournal), with zero
-   disconnected communities, a modularity in (0, 1), and the segment-reduce
-   kernel launched on the way (its count is reset just before the run).
+3. End to end, small: ``detect()`` on the card and on the CPU, for every
+   tier and split policy, give equal labels, stats and modularity bits,
+   and zero disconnected communities wherever the run promises it
+   (max-quality, and the standard tier with a split policy).
+4. End to end, full size, on ``rmat_graph(scale=21, edge_factor=16,
+   seed=1)`` (about 2.1M vertices and 63.5M directed edges, the scale of
+   com-LiveJournal): ``detect()`` with default options (zero disconnected
+   communities, a modularity in (0, 1)), then with 'max-quality' (zero
+   disconnected; its two candidates' modularities ``q_r`` and ``q_s``, the
+   same bits on the card and the CPU, and its pick) and with 'fast'
+   (LPA: its disconnected count reported), then ``louvain_staged`` (the
+   labels of the default ``detect()``).  Each run prints its wall time,
+   peak device memory and segment-reduce launches, whose count is set to
+   0 just before it and must be above 0 after it.
 
 5. The kernel API vs plain, on the card: ``repro_torch.kernels.ops``'s
    ``cumsum``, ``segsum_sorted``, ``segsum``, ``spmm`` and
@@ -60,8 +67,9 @@ result line):
    the flash entry counts launches by route.  Then the median time of
    each case, its bound, the plain version's time and one PyTorch call's.
 
-``--profile`` adds a traced run of phase 4 (device time by kernel, the
-device's busy share, and each segment-reduce kernel's total) and, in phase
+``--profile`` adds a traced run of phase 4's ``detect()`` of each tier
+(device time by kernel, the device's busy share, and each segment-reduce
+kernel's total) and, in phase
 5, three traced calls of each ``segsum``, ``cumsum`` and ``spmm`` case
 (device time a call by kernel).  The second-to-last lines are
 one JSON object for the kernels (``kernels``) and the card line; the last
@@ -70,6 +78,7 @@ line is the result object.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import re
@@ -791,11 +800,31 @@ def api_phase(g, labels, profile=False) -> list[dict]:
     return list(entries.values())
 
 
+def tier_runs() -> list[tuple[str, str]]:
+    """Every (tier, split policy) that ``detect()`` runs: the standard tier
+    with each of the eight split policies, then 'fast' and 'max-quality'
+    with the default split."""
+    from repro_torch.core.louvain import SPLITS
+
+    return [("standard", s) for s in SPLITS] + [("fast", "sp-pj"),
+                                                ("max-quality", "sp-pj")]
+
+
+def promises_connected(algorithm: str, split: str) -> bool:
+    """Whether a run promises zero disconnected communities: max-quality,
+    and the standard tier with a split policy (plain Louvain, 'none', and
+    LPA, 'fast', do not)."""
+    return algorithm == "max-quality" or (
+        algorithm == "standard" and split != "none")
+
+
 def small_phase():
-    """Phase 3: card vs CPU, labels equal, zero disconnected."""
+    """Phase 3: card vs CPU on two small graphs, every tier and split
+    policy: labels, stats and modularity bits equal, and zero disconnected
+    communities wherever the run promises it."""
     import torch
 
-    from repro_torch.core import detect
+    from repro_torch.core import DetectOptions, LouvainConfig, detect
     from repro_torch.graph import rmat_graph, sbm_graph
 
     graphs = {
@@ -805,35 +834,172 @@ def small_phase():
             lambda d: sbm_graph(2048, 24, 0.12, 0.002, seed=2, device=d)[0],
     }
     for name, make in graphs.items():
-        on_card = detect(make("cuda"))
-        on_cpu = detect(make("cpu"), device="cpu")
-        equal = torch.equal(on_card.labels.cpu(), on_cpu.labels)
-        log(f"  {name}: labels equal={equal}  communities="
-            f"{on_card.n_communities}/{on_cpu.n_communities}  disconnected="
-            f"{on_card.n_disconnected}/{on_cpu.n_disconnected}  Q="
-            f"{on_card.modularity:.9f}/{on_cpu.modularity:.9f}")
-        if not equal or on_card.n_disconnected or on_cpu.n_disconnected:
-            raise AssertionError(f"card vs CPU mismatch on {name}")
+        g_card, g_cpu = make("cuda"), make("cpu")
+        for algorithm, split in tier_runs():
+            opts = DetectOptions(algorithm=algorithm,
+                                 louvain=LouvainConfig(split=split))
+            on_card = detect(g_card, options=opts)
+            on_cpu = detect(g_cpu, options=opts, device="cpu")
+            equal = torch.equal(on_card.labels.cpu(), on_cpu.labels) and \
+                on_card.stats == on_cpu.stats
+            same_q = on_card.modularity == on_cpu.modularity
+            log(f"  {name} {algorithm}/{split}: labels and stats equal="
+                f"{equal}  Q bits equal={same_q}  communities="
+                f"{on_card.n_communities}/{on_cpu.n_communities}  "
+                f"disconnected={on_card.n_disconnected}/"
+                f"{on_cpu.n_disconnected}  Q={on_card.modularity:.9f}")
+            broken = promises_connected(algorithm, split) and (
+                on_card.n_disconnected or on_cpu.n_disconnected)
+            if not equal or not same_q or broken or \
+                    on_card.n_disconnected != on_cpu.n_disconnected:
+                raise AssertionError(
+                    f"card vs CPU mismatch on {name}, {algorithm}/{split}")
 
 
-def profile_phase(g):
-    """A second, traced detect(): device time by kernel and the device's
-    busy share of the traced wall time (kernels run on one stream)."""
+def timed_path(fn):
+    """Run ``fn()`` once on the card with the segment-reduce kernel's
+    launch count set to 0 just before: ``(result, wall seconds, launches,
+    peak device GiB)``.  Raises if the path launched the kernel no time."""
+    import torch
+
+    from repro_torch.kernels.segsum import segreduce_sorted_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    segreduce_sorted_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = segreduce_sorted_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches == 0:
+        raise AssertionError("the path launched no segreduce kernel")
+    return out, wall, launches, peak
+
+
+def same_bits(a, b) -> bool:
+    """float32 tensors equal as int32 bits (on the host)."""
+    import torch
+
+    return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def tiers_phase(g, standard) -> dict:
+    """Phase 4, the other paths at full size: ``detect()`` with
+    'max-quality' and with 'fast', and ``louvain_staged``; each run alone
+    with the launch count set to 0 just before.  ``standard`` is phase 4's
+    default ``detect()``.  Returns the launches by path."""
+    import torch
+
+    from repro_torch.core import (DetectOptions, LouvainConfig, detect,
+                                  disconnected_communities, louvain_impl,
+                                  louvain_staged, modularity, tier_config)
+    from repro_torch.graph.container import strip_padding
+
+    # the module (``repro_torch.core.louvain`` names the function)
+    louvain_mod = importlib.import_module("repro_torch.core.louvain")
+
+    split_unconnected = louvain_mod._split_unconnected
+
+    launches = {}
+    for algorithm in ("max-quality", "fast"):
+        phases = {}
+        res, wall, n, peak = timed_path(lambda: detect(
+            g, options=DetectOptions(algorithm=algorithm),
+            phase_seconds=phases))
+        launches[f"detect {algorithm}"] = n
+        st = res.stats
+        log(f"  detect {algorithm}: wall={wall} s  segreduce_sorted "
+            f"launches={n}  peak device memory={peak:.2f} GiB  communities="
+            f"{res.n_communities}  disconnected={res.n_disconnected}  "
+            f"modularity={res.modularity:.6f}  passes={st['passes']}  "
+            f"li_total={st['li_total']}")
+        log("    phase seconds: " + "  ".join(
+            f"{k}={v}" for k, v in sorted(phases.items())))
+        if not 0.0 < res.modularity < 1.0 and algorithm != "fast":
+            raise AssertionError(f"{algorithm}: modularity {res.modularity}")
+        if algorithm == "fast":
+            continue
+        if res.n_disconnected != 0:
+            raise AssertionError(f"max-quality: {res.n_disconnected} "
+                                 "disconnected communities")
+        # the two candidates again, to show the pick: the GSP one is the
+        # default detect() of phase 4; Q of each on the card and the CPU.
+        # The refined one's communities that came out unconnected, before
+        # the pass loop splits them (the reference keeps them: ROADMAP C.7)
+        live = strip_padding(g.src, g.dst, g.w, g.ghost)
+        unconnected = []
+
+        def count_then_split(live_, C, node_mask):
+            det = disconnected_communities(*live_, C, g.n_nodes)
+            unconnected.append(int(det["n_disconnected"]))
+            return split_unconnected(live_, C, node_mask)
+
+        louvain_mod._split_unconnected = count_then_split
+        try:
+            t0 = time.perf_counter()
+            C_r, _ = louvain_impl(g, tier_config("max-quality",
+                                                 LouvainConfig()))
+            torch.cuda.synchronize()
+            t_r = time.perf_counter() - t0
+        finally:
+            louvain_mod._split_unconnected = split_unconnected
+        live_cpu = [t.cpu() for t in live]
+        q = {}
+        for key, C in (("q_r", C_r), ("q_s", standard.labels)):
+            q[key] = modularity(*live, C)
+            q_cpu = modularity(*live_cpu, C.cpu())
+            if not same_bits(q[key], q_cpu):
+                raise AssertionError(f"{key}: card {float(q[key])} != CPU "
+                                     f"{float(q_cpu)}")
+        take_r = bool(q["q_r"] >= q["q_s"])
+        want = C_r if take_r else standard.labels
+        log(f"    q_r={float(q['q_r'])!r}  q_s={float(q['q_s'])!r} (card == "
+            f"CPU bit for bit)  pick={'refine' if take_r else 'sp-pj'}  "
+            f"refine candidate alone {t_r} s (with a detector run), "
+            f"unconnected before its final split: {unconnected}")
+        if not torch.equal(res.labels, want):
+            raise AssertionError("max-quality's labels are not its pick's")
+
+    (C, st), wall, n, peak = timed_path(lambda: louvain_staged(g))
+    launches["louvain_staged"] = n
+    equal = torch.equal(C, standard.labels)
+    log(f"  louvain_staged: wall={wall} s  segreduce_sorted launches={n}  "
+        f"peak device memory={peak:.2f} GiB  communities="
+        f"{st['n_communities']}  passes={st['passes']}  labels equal to "
+        f"detect()'s={equal}")
+    log("    phase seconds: " + "  ".join(
+        f"{k}={v}" for k, v in sorted(st["phase_seconds"].items())) +
+        f"  pass seconds: {st['pass_seconds']}")
+    if len(st["pass_seconds"]) != st["passes"]:
+        raise AssertionError("louvain_staged: a pass time is missing")
+    if not equal:
+        raise AssertionError("louvain_staged's labels differ from detect()'s "
+                             "(float64 tau: see ROADMAP queue C)")
+    return launches
+
+
+def profile_phase(g, algorithm="standard"):
+    """A second, traced detect() of a tier: device time by kernel and the
+    device's busy share of the traced wall time (kernels run on one
+    stream)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import detect
+    from repro_torch.core import DetectOptions, detect
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        detect(g)
+        detect(g, options=DetectOptions(algorithm=algorithm))
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     busy_us = sum(e.self_device_time_total for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    log(f"  traced detect: wall={wall} s  device busy={busy_us / 1e6} s "
-        f"({100 * busy_us / 1e6 / wall} %)")
+    log(f"  traced detect {algorithm}: wall={wall} s  device busy="
+        f"{busy_us / 1e6} s ({100 * busy_us / 1e6 / wall} %)")
     log(events.table(sort_by="self_device_time_total", row_limit=25,
                      max_name_column_width=70))
     seg = sorted(((e.self_device_time_total, e.count, e.key) for e in events
@@ -867,7 +1033,6 @@ def main(argv=None) -> int:
     from repro_torch.core import detect
     from repro_torch.graph import rmat_graph
     from repro_torch.kernels import _build
-    from repro_torch.kernels.segsum import segreduce_sorted_cuda
 
     card = card_line()
     log("phase 1: environment")
@@ -899,19 +1064,13 @@ def main(argv=None) -> int:
     small_phase()
 
     log("phase 4: end to end, full size, on the card")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     phase_seconds = {}
-    segreduce_sorted_cuda.launches = 0
-    t0 = time.perf_counter()
-    res = detect(g, phase_seconds=phase_seconds)
-    wall = time.perf_counter() - t0
-    launches = segreduce_sorted_cuda.launches
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    res, wall, launches, peak = timed_path(
+        lambda: detect(g, phase_seconds=phase_seconds))
     st = res.stats
-    log(f"  passes={st['passes']}  sweeps(li_total)={st['li_total']}  "
-        f"communities={res.n_communities}  disconnected={res.n_disconnected}"
-        f"  modularity={res.modularity:.6f}")
+    log(f"  detect standard: passes={st['passes']}  sweeps(li_total)="
+        f"{st['li_total']}  communities={res.n_communities}  disconnected="
+        f"{res.n_disconnected}  modularity={res.modularity:.6f}")
     log(f"  wall seconds: total={wall}  " + "  ".join(
         f"{k}={v}" for k, v in sorted(phase_seconds.items())))
     log(f"  segreduce_sorted launches={launches}  peak device memory="
@@ -920,19 +1079,21 @@ def main(argv=None) -> int:
         raise AssertionError(f"{res.n_disconnected} disconnected communities")
     if not 0.0 < res.modularity < 1.0:
         raise AssertionError(f"modularity {res.modularity} not in (0, 1)")
-    if launches == 0:
-        raise AssertionError("the main path launched no segreduce kernel")
     labels = res.labels[: int(g.n_nodes)]
     if int(labels.min()) < 0 or int(labels.max()) >= res.n_communities:
         raise AssertionError("labels out of [0, n_communities)")
+    by_path = {"detect standard": launches}
+    by_path.update(tiers_phase(g, res))
 
     if args.profile:
-        profile_phase(g)
+        for algorithm in ("standard", "max-quality", "fast"):
+            profile_phase(g, algorithm)
 
     log("phase 5: the kernel API vs plain, on the card")
     api_entries = api_phase(g, res.labels, profile=args.profile)
 
     entry["launches"] = launches
+    entry["launches_by_path"] = by_path
     log(json.dumps({"kernels": [entry] + api_entries}))
     log(card)
     # the run uses one card, whatever else the machine holds

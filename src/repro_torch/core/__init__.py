@@ -1,12 +1,15 @@
 """GSP-Louvain core in PyTorch: the paper's phases and the detect() API."""
-from repro_torch.core.louvain import LouvainConfig, louvain, louvain_impl
+from repro_torch.core.louvain import (
+    LouvainConfig, louvain, louvain_impl, louvain_staged, refine_labels,
+)
 from repro_torch.core.local_move import local_move
 from repro_torch.core.split import split_labels
 from repro_torch.core.aggregate import aggregate
 from repro_torch.core.detect import disconnected_communities
 from repro_torch.core.modularity import modularity
+from repro_torch.core.lpa import lpa, lpa_run
 from repro_torch.core.portfolio import (
-    ALGORITHMS, QualityContract, contract_for,
+    ALGORITHMS, QualityContract, contract_for, tier_config,
 )
 # the unified entry point (NOTE: rebinds the package attribute `detect`
 # from the submodule to the function, as in the reference package)
@@ -25,6 +28,11 @@ __all__ = [
     "local_move",
     "louvain",
     "louvain_impl",
+    "louvain_staged",
+    "lpa",
+    "lpa_run",
     "modularity",
+    "refine_labels",
     "split_labels",
+    "tier_config",
 ]

@@ -31,8 +31,7 @@ class DetectOptions:
     """Everything that selects *how* detection runs (not *what* graph).
 
     Fields:
-      algorithm: 'fast' | 'standard' | 'max-quality' — the portfolio tier
-                 (only 'standard' runs so far).
+      algorithm: 'fast' | 'standard' | 'max-quality' — the portfolio tier.
       louvain:   the algorithm config (passes, tolerance ladder, split).
       scan:      'auto' | 'sort' — community-scan layout; 'dense' is not
                  ported yet and raises.

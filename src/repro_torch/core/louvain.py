@@ -12,9 +12,19 @@ frozen graph does.  Each pass works on the live edges only: the ghost
 padding that keeps the reference's shapes static is stripped after every
 aggregation (``graph.container.strip_padding``).
 
-Split policies ported so far: 'none' and 'sp-lp' / 'sp-lpp' / 'sp-pj'
-(GSP-Louvain, the default).  'sl-*' and 'refine' wait for ROADMAP item
-A.5.
+Split policies (``LouvainConfig.split``), all eight of the reference's:
+'none'; 'sp-lp' / 'sp-lpp' / 'sp-pj' (split every pass; 'sp-pj' is
+GSP-Louvain, the default); 'sl-lp' / 'sl-lpp' / 'sl-pj' (split once,
+after the last pass); 'refine' (Leiden-style refinement in the split slot,
+:func:`refine_labels`).  One departure from the reference: a refinement
+can leave a part unconnected, and the reference returns such communities
+(ROADMAP C.7), so 'refine' ends by splitting any community that came out
+unconnected into its connected pieces.  Where none did, the labels are
+the reference's.
+
+:func:`louvain_staged` is the reference's Figure-5 entry point: the same loop
+with wall seconds per phase and per pass, and the reference's host
+arithmetic in float64.
 """
 from __future__ import annotations
 
@@ -32,7 +42,8 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.container import Graph, strip_padding
 from repro_torch.kernels import ops
 
-SPLITS = ("none", "sp-lp", "sp-lpp", "sp-pj")
+SPLITS = ("none", "sp-lp", "sp-lpp", "sp-pj", "sl-lp", "sl-lpp", "sl-pj",
+          "refine")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,18 +53,19 @@ class LouvainConfig:
     tolerance: float = 1e-2
     tolerance_drop: float = 10.0
     aggregation_tolerance: float = 0.8
-    split: str = "sp-pj"          # none | sp-{lp,lpp,pj}; sl-* and refine: A.5
+    split: str = "sp-pj"          # none | {sp,sl}-{lp,lpp,pj} | refine
     sync: str = "handshake"       # handshake | parity | all
     prune: bool = True
     split_max_iters: int = 0      # 0 = graph-size bound
 
 
 def _check_split(split: str) -> None:
-    if split == "refine" or split.startswith("sl-"):
-        raise NotImplementedError(
-            f"split={split!r} is not ported yet (ROADMAP queue A, item 5)")
     if split not in SPLITS:
         raise ValueError(f"split must be one of {SPLITS}, got {split!r}")
+
+
+def _split_mode(split: str) -> str:
+    return split.split("-")[1] if "-" in split else "pj"
 
 
 class _Clock:
@@ -77,6 +89,132 @@ class _Clock:
         return res
 
 
+def refine_labels(src, dst, w, C, two_m, *, tau, max_iters: int = 10):
+    """Leiden refinement: local-move from singletons within each community
+    of ``C`` (cross-community weights zeroed, zero-weight edges kept in the
+    edge list), scored against the full graph's ``two_m``.  Returns a
+    refinement of ``C``.  A move needs a positive in-community edge, but a
+    part can still come out unconnected, as in the reference: vertices
+    join a neighbour's community, and that neighbour moves on in a later
+    sweep (ROADMAP C.7).
+
+    As in the reference, the local move runs with its default ``sync``
+    ('handshake') and ``prune`` (True), whatever the pass's config says.
+    The reference's ``axis``, ``owned`` and ``skip`` have no counterpart in
+    this host loop, and its backend knobs none on a device-dispatched
+    reduce.
+    """
+    nv = C.shape[0]
+    w_in = torch.where(C[src] == C[dst], w, 0.0)
+    K_in = ops.segreduce_sorted(w_in, src, nv, op="sum")
+    C0 = torch.arange(nv, dtype=torch.int32, device=C.device)
+    R, _, _ = local_move(src, dst, w_in, C0, K_in, K_in, two_m, tau=tau,
+                         max_iters=max_iters)
+    return R
+
+
+def _split_slot(cfg: LouvainConfig, src, dst, w, C, two_m, tau):
+    """The labels the pass's split slot gives: refined or split ``C``."""
+    if cfg.split == "refine":
+        return refine_labels(src, dst, w, C, two_m, tau=tau,
+                             max_iters=cfg.max_iters)
+    labels, _ = split_labels(src, dst, w, C, mode=_split_mode(cfg.split),
+                             max_iters=cfg.split_max_iters)
+    return labels
+
+
+def _split_unconnected(live, C, node_mask):
+    """``(C, moved)``: ``C`` with every unconnected community split into
+    its connected pieces (pointer jumping), and the vertices moved out of
+    the piece that holds their community's smallest id.  Where every
+    community is connected, ``C`` comes back as it was, with 0."""
+    nv = C.shape[0]
+    L, _ = split_labels(*live, C, mode="pj")
+    n_pieces, n_comms = (int(seg.count_communities(x, node_mask, nv))
+                         for x in (L, C))
+    if n_pieces == n_comms:
+        return C, 0
+    s_c, perm = torch.sort(C, stable=True)
+    first = ops.segreduce_sorted(L[perm], s_c, nv, op="min")
+    moved = int(torch.sum((L != first[C]) & node_mask))
+    return seg.renumber(L, node_mask, nv)[0], moved
+
+
+def _louvain(g: Graph, cfg: LouvainConfig, clock: _Clock,
+             pass_seconds: list | None = None):
+    """The pass loop of :func:`louvain_impl`; with ``pass_seconds`` (the
+    staged entry point) it appends each pass's wall seconds there and keeps
+    ``tau`` and the shrink test in float64 on the host, as the reference's
+    ``louvain_staged`` does (its ``louvain_impl`` keeps them in float32)."""
+    _check_split(cfg.split)
+    staged = pass_seconds is not None
+    nv = g.nv
+    dev = g.device
+    two_m = g.total_weight_2m()
+    in_slot = cfg.split == "refine" or cfg.split.startswith("sp")
+    ids = torch.arange(nv, dtype=torch.int32, device=dev)
+
+    # the reference's fixed capacities exist for jit: work on live edges
+    live = strip_padding(g.src, g.dst, g.w, g.ghost)
+    esrc, edst, ew = live
+    Ctop = ids
+    n_cur = int(g.n_nodes)
+    tau = float(cfg.tolerance) if staged else np.float32(cfg.tolerance)
+    drop = cfg.tolerance_drop if staged else np.float32(cfg.tolerance_drop)
+    passes = li = li_total = split_moved = 0
+    done = False
+    while not done and passes < cfg.max_passes:
+        if staged:
+            clock.sync()
+            t_pass = time.perf_counter()
+        node_valid = ids < n_cur
+        # aggregation emits run-sorted super-edges, so esrc stays sorted
+        K = clock.run("other", ops.segreduce_sorted, ew, esrc, nv, op="sum")
+        C, _, li = clock.run(
+            "local_move", local_move, esrc, edst, ew, ids, K, K, two_m,
+            tau=tau, max_iters=cfg.max_iters, sync=cfg.sync, prune=cfg.prune)
+        labels = (clock.run("split", _split_slot, cfg, esrc, edst, ew, C,
+                            two_m, tau) if in_slot else C)
+        C_dense, n_comms = clock.run("other", seg.renumber, labels,
+                                     node_valid, nv)
+        # split-pass trigger count: vertices the split moved (telemetry)
+        split_moved += int(torch.sum((labels != C) & node_valid))
+        Ctop = C_dense[Ctop]
+        n_comms = int(n_comms)
+        passes += 1
+        li_total += li
+        if staged:   # the reference's pass time leaves out aggregation
+            pass_seconds.append(time.perf_counter() - t_pass)
+            low_shrink = n_comms > cfg.aggregation_tolerance * n_cur
+        else:
+            low_shrink = np.float32(n_comms) > (
+                np.float32(cfg.aggregation_tolerance) * np.float32(n_cur))
+        done = li <= 1 or low_shrink
+        if not done:   # the reference freezes the graph on the last pass
+            esrc, edst, ew = clock.run(
+                "aggregate", lambda: strip_padding(
+                    *aggregate(esrc, edst, ew, C_dense), g.ghost))
+            n_cur = n_comms
+            tau = tau / drop
+
+    node_mask = g.node_mask()
+    if cfg.split.startswith("sl"):
+        # split last: once, on the original graph's top-level labels
+        labels, _ = clock.run("split", split_labels, *live, Ctop,
+                              mode=_split_mode(cfg.split),
+                              max_iters=cfg.split_max_iters)
+        split_moved += int(torch.sum((labels != Ctop) & node_mask))
+        Ctop, _ = seg.renumber(labels, node_mask, nv)
+    elif cfg.split == "refine":
+        Ctop, moved = clock.run("split", _split_unconnected, live, Ctop,
+                                node_mask)
+        split_moved += moved
+    n_final = int(seg.count_communities(Ctop, node_mask, nv))
+    stats = dict(passes=passes, li_last=li, li_total=li_total,
+                 split_moved=split_moved, n_communities=n_final)
+    return Ctop, stats
+
+
 def louvain_impl(g: Graph, cfg: LouvainConfig = LouvainConfig(), *,
                  phase_seconds: dict | None = None):
     """Run GSP-Louvain on ``g`` where it lies.
@@ -89,57 +227,7 @@ def louvain_impl(g: Graph, cfg: LouvainConfig = LouvainConfig(), *,
     (local_move, split, aggregate, other) are added, with the device
     synchronized at every phase edge; ``None`` adds no synchronization.
     """
-    _check_split(cfg.split)
-    clock = _Clock(phase_seconds, g.device)
-    nv = g.nv
-    dev = g.device
-    two_m = g.total_weight_2m()
-    mode = cfg.split.split("-")[1] if cfg.split != "none" else None
-    ids = torch.arange(nv, dtype=torch.int32, device=dev)
-
-    # the reference's fixed capacities exist for jit: work on live edges
-    esrc, edst, ew = strip_padding(g.src, g.dst, g.w, g.ghost)
-    Ctop = ids
-    n_cur = int(g.n_nodes)
-    tau = np.float32(cfg.tolerance)
-    passes = li = li_total = split_moved = 0
-    done = False
-    while not done and passes < cfg.max_passes:
-        node_valid = ids < n_cur
-        # aggregation emits run-sorted super-edges, so esrc stays sorted
-        K = clock.run("other", ops.segreduce_sorted, ew, esrc, nv, op="sum")
-        C, _, li = clock.run(
-            "local_move", local_move, esrc, edst, ew, ids, K, K, two_m,
-            tau=tau, max_iters=cfg.max_iters, sync=cfg.sync, prune=cfg.prune)
-        if mode is not None:
-            labels, _ = clock.run("split", split_labels, esrc, edst, ew, C,
-                                  mode=mode, max_iters=cfg.split_max_iters)
-        else:
-            labels = C
-        C_dense, n_comms = clock.run("other", seg.renumber, labels,
-                                     node_valid, nv)
-        # split-pass trigger count: vertices the split moved (telemetry)
-        split_moved += int(torch.sum((labels != C) & node_valid))
-        Ctop = C_dense[Ctop]
-        n_comms = int(n_comms)
-
-        converged = li <= 1
-        low_shrink = np.float32(n_comms) > (
-            np.float32(cfg.aggregation_tolerance) * np.float32(n_cur))
-        done = converged or low_shrink
-        if not done:   # the reference freezes the graph on the last pass
-            esrc, edst, ew = clock.run(
-                "aggregate", lambda: strip_padding(
-                    *aggregate(esrc, edst, ew, C_dense), g.ghost))
-            n_cur = n_comms
-        tau = tau / np.float32(cfg.tolerance_drop)
-        passes += 1
-        li_total += li
-
-    n_final = int(seg.count_communities(Ctop, g.node_mask(), nv))
-    stats = dict(passes=passes, li_last=li, li_total=li_total,
-                 split_moved=split_moved, n_communities=n_final)
-    return Ctop, stats
+    return _louvain(g, cfg, _Clock(phase_seconds, g.device))
 
 
 def louvain(g: Graph, cfg: LouvainConfig | None = None, *, device=None):
@@ -150,3 +238,25 @@ def louvain(g: Graph, cfg: LouvainConfig | None = None, *, device=None):
     """
     g = g.to(resolve_device(device))
     return louvain_impl(g, cfg if cfg is not None else LouvainConfig())
+
+
+def louvain_staged(g: Graph, cfg: LouvainConfig | None = None, *,
+                   device=None):
+    """Host-staged GSP-Louvain with per-phase and per-pass wall times (the
+    paper's Figure 5): ``(C, stats)``, where stats also carries
+    ``phase_seconds`` = {local_move, split, aggregate, other} and
+    ``pass_seconds``, one entry a pass (aggregation left out, as in the
+    reference).
+
+    ``tau`` is divided and the shrink test made in float64 on the host, as
+    in the reference's ``louvain_staged``, so its labels equal that one's
+    (they can differ from :func:`louvain_impl`'s, which uses float32).
+    Runs on ``device`` (``None`` = CUDA; raises when CUDA is absent).
+    """
+    g = g.to(resolve_device(device))
+    phase = dict(local_move=0.0, split=0.0, aggregate=0.0, other=0.0)
+    pass_seconds: list[float] = []
+    C, stats = _louvain(g, cfg if cfg is not None else LouvainConfig(),
+                        _Clock(phase, g.device), pass_seconds)
+    stats.update(phase_seconds=phase, pass_seconds=pass_seconds)
+    return C, stats

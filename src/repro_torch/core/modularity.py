@@ -13,17 +13,19 @@ def modularity(src, dst, w, C, nv=None) -> torch.Tensor:
     both ends in c (self-loops once), ``Sigma_c`` sums weighted degrees.
     The per-vertex sums are keyed by the sorted ``src`` (one 2-channel
     pass); the per-community sums are keyed by ``C`` and folded in index
-    order through a stable sort (one more 2-channel pass).  The final flat
-    sum follows torch's reduction order, not XLA's, so Q may differ from
-    the reference in the last bits.
+    order through a stable sort (one more 2-channel pass).  2m and the
+    final flat sum over communities are ``ops.sum_inorder`` folds, so Q has
+    the same bits on the card and on the CPU: the max-quality tier decides
+    between its two candidates by it.  The reference's ``jnp.sum`` folds in
+    another order, so Q may differ from it in the last bits.
     """
     if nv is None:
         nv = C.shape[0]
-    two_m = torch.sum(w)
+    two_m = ops.sum_inorder(w)
     internal = torch.where(C[src] == C[dst], w, 0.0)
     Ks = ops.segreduce_sorted(torch.stack([w, internal], dim=1), src, nv,
                               op="sum")
     per_c = ops.segment_sum_inorder(Ks, C, nv)   # [Sigma_c, sigma_c]
     frac = per_c[:, 0] / two_m
     q = per_c[:, 1] / two_m - frac * frac
-    return torch.sum(q)
+    return ops.sum_inorder(q)

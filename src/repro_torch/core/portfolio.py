@@ -1,17 +1,32 @@
 """SLO-tiered algorithm portfolio (port of ``repro/core/portfolio.py``).
 
 One dispatch over the tiers of ``DetectOptions.algorithm``, each with the
-:class:`QualityContract` it stamps on its results.  Ported so far: the
-'standard' tier (GSP-Louvain, the paper).  'fast' (LPA) and 'max-quality'
-(Leiden-style refine) raise until ROADMAP item A.5 ports them.
+:class:`QualityContract` it stamps on its results:
+
+  'fast'        -- LPA (``core/lpa.py``): labels converge, no structural
+                   guarantee.
+  'standard'    -- GSP-Louvain (the paper; ``split='sp-pj'`` by default).
+  'max-quality' -- two candidates, the pass loop with Leiden-style
+                   refinement in the split slot and the plain GSP run,
+                   and the one of higher modularity (the refined one on a
+                   tie).  Both modularities are ``ops.sum_inorder`` folds,
+                   so the card and the CPU pick alike.  Both candidates
+                   are connected: the refined one through the pass loop's
+                   split of what refinement leaves unconnected, which the
+                   reference omits (ROADMAP C.7).
+
+Stats are the same five Python ints for every tier (passes / li_last /
+li_total / split_moved / n_communities).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 
+from repro_torch.core import _segments as seg
 from repro_torch.core.detect import disconnected_communities
-from repro_torch.core.louvain import louvain_impl
+from repro_torch.core.louvain import LouvainConfig, _Clock, louvain_impl
+from repro_torch.core.lpa import lpa_run
 from repro_torch.core.modularity import modularity
 from repro_torch.graph.container import strip_padding
 
@@ -58,14 +73,49 @@ def contract_for(algorithm: str) -> QualityContract:
         ) from None
 
 
+def tier_config(algorithm: str, cfg: LouvainConfig) -> LouvainConfig:
+    """The LouvainConfig a tier runs (fast ignores it; standard runs it as
+    it is; max-quality's refined candidate swaps the split slot)."""
+    contract_for(algorithm)
+    if algorithm == "max-quality":
+        return dataclasses.replace(cfg, split="refine")
+    return cfg
+
+
+def _standard_config(cfg: LouvainConfig) -> LouvainConfig:
+    """max-quality's GSP candidate: the base config, never 'refine' (where
+    the caller asked for refine, the paper's default is the comparator)."""
+    if cfg.split == "refine":
+        return dataclasses.replace(cfg, split="sp-pj")
+    return cfg
+
+
 def partition(g, options, *, phase_seconds=None):
-    """Run one portfolio tier on one graph where it lies: ``(C, stats)``."""
-    contract_for(options.algorithm)
-    if options.algorithm != "standard":
-        raise NotImplementedError(
-            f"algorithm={options.algorithm!r} is not ported yet "
-            "(ROADMAP queue A, item 5)")
-    return louvain_impl(g, options.louvain, phase_seconds=phase_seconds)
+    """Run one portfolio tier on one graph where it lies: ``(C, stats)``.
+
+    ``phase_seconds`` (a dict or ``None``) collects the phases of the pass
+    loop (both of max-quality's candidates add into the same keys), 'lpa'
+    for the fast tier, and 'select' for max-quality's two modularities.
+    """
+    algorithm = options.algorithm
+    contract_for(algorithm)
+    if algorithm == "fast":
+        C, iters = _Clock(phase_seconds, g.device).run("lpa", lpa_run, g)
+        n = int(seg.count_communities(C, g.node_mask(), g.nv))
+        return C, dict(passes=1, li_last=iters, li_total=iters,
+                       split_moved=0, n_communities=n)
+    if algorithm == "standard":
+        return louvain_impl(g, options.louvain, phase_seconds=phase_seconds)
+    # max-quality: the refined candidate, the GSP one, the better of the two
+    C_r, st_r = louvain_impl(g, tier_config(algorithm, options.louvain),
+                             phase_seconds=phase_seconds)
+    C_s, st_s = louvain_impl(g, _standard_config(options.louvain),
+                             phase_seconds=phase_seconds)
+    live = strip_padding(g.src, g.dst, g.w, g.ghost)
+    clock = _Clock(phase_seconds, g.device)
+    q_r = clock.run("select", modularity, *live, C_r)
+    q_s = clock.run("select", modularity, *live, C_s)
+    return (C_r, st_r) if bool(q_r >= q_s) else (C_s, st_s)
 
 
 def run_detection(graph, options, *, phase_seconds=None):
@@ -74,7 +124,7 @@ def run_detection(graph, options, *, phase_seconds=None):
 
     ``n_disconnected`` is always measured, so the tier's contract is
     checked, not assumed.  ``phase_seconds`` (a dict or ``None``) collects
-    the pass loop's phase times plus 'detector' and 'modularity'.
+    :func:`partition`'s phase times plus 'detector' and 'modularity'.
     """
     from repro_torch.core.api import Detection
 

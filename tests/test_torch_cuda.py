@@ -6,19 +6,24 @@ This file imports no jax, so it runs where only PyTorch is installed: the
 segment-reduce kernel is held against its plain version (f32 sums against
 the plain version on a CPU copy, since CUDA's ``index_add_`` folds in no
 fixed order), and ``detect()`` on the card against ``detect()`` on the CPU,
-exactly.  The kernels of the kernel API are held against their plain
-versions within stated bounds: float32 rounding bounds against float64 for
-the sums, the reference's own tolerances for spmm and float32 attention,
-and the output's bf16 rounding (``chip_smoke.py`` phase 5) for 16-bit
-attention, on both routes of ``kernels/flash_attn.py:tensor_core_route``.
+exactly, for every tier and split policy (and the modularity that decides
+max-quality's pick, bit for bit).  The kernels of the kernel API are held
+against their plain versions within stated bounds: float32 rounding bounds
+against float64 for the sums, the reference's own tolerances for spmm and
+float32 attention, and the output's bf16 rounding (``chip_smoke.py`` phase
+5) for 16-bit attention, on both routes of
+``kernels/flash_attn.py:tensor_core_route``.
 """
 import numpy as np
 import pytest
 import torch
 from _torch_layouts import INORDER_LAYOUTS, TILED_LAYOUTS, tiled_layout
 
-from repro_torch.core import detect
+from repro_torch.core import (DetectOptions, LouvainConfig, detect,
+                               louvain_staged, modularity)
+from repro_torch.core.louvain import SPLITS
 from repro_torch.graph import rmat_graph, sbm_graph
+from repro_torch.graph.container import strip_padding
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attn import (flash_attention_cuda,
                                             tensor_core_route)
@@ -228,6 +233,53 @@ def test_detect_card_equals_cpu(cuda, make):
     assert torch.equal(on_card.labels.cpu(), on_cpu.labels)
     assert on_card.n_disconnected == on_cpu.n_disconnected == 0
     assert on_card.stats == on_cpu.stats
+
+
+SMALL_GRAPHS = {
+    "rmat10": lambda d: rmat_graph(scale=10, edge_factor=8, seed=3, device=d),
+    "sbm512": lambda d: sbm_graph(512, 8, 0.2, 0.004, seed=1, device=d)[0],
+}
+TIER_RUNS = [("standard", s) for s in SPLITS] + [("fast", "sp-pj"),
+                                                 ("max-quality", "sp-pj")]
+
+
+@pytest.mark.parametrize("algorithm,split", TIER_RUNS,
+                         ids=[f"{a}-{s}" for a, s in TIER_RUNS])
+@pytest.mark.parametrize("graph", sorted(SMALL_GRAPHS))
+def test_tier_and_split_card_equals_cpu(cuda, graph, algorithm, split):
+    """Every tier and split policy gives the CPU's labels on the card."""
+    opts = DetectOptions(algorithm=algorithm,
+                         louvain=LouvainConfig(split=split))
+    on_card = detect(SMALL_GRAPHS[graph](cuda), options=opts)
+    on_cpu = detect(SMALL_GRAPHS[graph]("cpu"), options=opts, device="cpu")
+    assert torch.equal(on_card.labels.cpu(), on_cpu.labels)
+    assert on_card.stats == on_cpu.stats
+    assert on_card.n_disconnected == on_cpu.n_disconnected
+    assert on_card.modularity == on_cpu.modularity
+
+
+@pytest.mark.parametrize("graph", sorted(SMALL_GRAPHS))
+def test_louvain_staged_card_equals_cpu(cuda, graph):
+    C_card, st_card = louvain_staged(SMALL_GRAPHS[graph](cuda))
+    C_cpu, st_cpu = louvain_staged(SMALL_GRAPHS[graph]("cpu"), device="cpu")
+    assert torch.equal(C_card.cpu(), C_cpu)
+    assert st_card["passes"] == st_cpu["passes"] == \
+        len(st_card["pass_seconds"])
+
+
+@pytest.mark.parametrize("graph", sorted(SMALL_GRAPHS))
+def test_modularity_card_equals_cpu(cuda, graph):
+    """Q, which decides max-quality's pick, has the same bits on the card
+    and on the CPU, for its own labels and for labels drawn at random."""
+    g = SMALL_GRAPHS[graph]("cpu")
+    live = strip_padding(g.src, g.dst, g.w, g.ghost)
+    labels = detect(g, device="cpu").labels
+    rand = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 40, g.nv).astype(np.int32))
+    for C in (labels, rand):
+        q_cpu = modularity(*live, C)
+        q_card = modularity(*(t.to(cuda) for t in live), C.to(cuda)).cpu()
+        assert torch.equal(q_card.view(torch.int32), q_cpu.view(torch.int32))
 
 
 # --- the kernel API: cumsum, segsum, spmm, flash attention --------------------

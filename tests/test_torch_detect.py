@@ -2,9 +2,10 @@
 package, on the CPU.
 
 Labels, memberships, community weights and integer stats are compared
-exactly.  Modularity is compared within 1e-6 absolute: its last step is a
-flat float32 sum, which torch and XLA reduce in different orders (every
-segment sum before it folds in index order in both packages).
+exactly.  Modularity is compared within 1e-6 absolute: 2m and its last
+step are flat float32 sums, which the port folds in one fixed order
+(``ops.sum_inorder``) and XLA in another (every segment sum before them
+folds in index order in both packages).
 """
 import os
 import subprocess
@@ -229,18 +230,19 @@ def test_louvain_split_modes_equal(split):
 
 
 def test_unported_options_raise():
+    """Only the dense scan is left to port; every tier and split policy
+    runs, and unknown names raise ValueError."""
     g = _port(GRAPHS["grid"]())
-    for split in ("refine", "sl-pj"):
-        with pytest.raises(NotImplementedError, match="A"):
-            tcore.louvain(g, tcore.LouvainConfig(split=split), device="cpu")
-    for algorithm in ("fast", "max-quality"):
-        with pytest.raises(NotImplementedError):
-            tcore.detect(g, options=tcore.DetectOptions(algorithm=algorithm),
-                         device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tcore.DetectOptions(scan="dense")
     with pytest.raises(ValueError):
         tcore.DetectOptions(algorithm="best")
+    with pytest.raises(ValueError):
+        tcore.louvain(g, tcore.LouvainConfig(split="sp-bfs"), device="cpu")
+    for algorithm in tcore.ALGORITHMS:
+        res = tcore.detect(g, options=tcore.DetectOptions(
+            algorithm=algorithm), device="cpu")
+        assert res.n_communities > 1
 
 
 def test_phase_seconds_collects_every_phase():
@@ -262,6 +264,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tcore.detect(g)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcore.louvain(g)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcore.louvain_staged(g)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcore.lpa(g)
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -278,7 +284,8 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n"
+        "assert 'repro_torch.core.lpa' in names, names\n"
+        "assert len(names) >= 16, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
