@@ -35,7 +35,18 @@ result line):
 3. End to end, small: ``detect()`` on the card and on the CPU, for every
    tier and split policy, give equal labels, stats and modularity bits,
    and zero disconnected communities wherever the run promises it
-   (max-quality, and the standard tier with a split policy).
+   (max-quality, and the standard tier with a split policy).  Then the
+   dense scan at its full width, ``nv = 1025`` in the largest default
+   service bucket (``sbm_graph(1024, 16, 0.2, 0.003, seed=3, n_cap=1024,
+   m_cap=16384)``): for every tier and split policy, ``scan='dense'`` on
+   the card, on the CPU and ``scan='sort'`` on the card all equal, each
+   card run with its wall time and segment-reduce launches;
+   ``DetectOptions.resolved_scan`` against the reference's answers; and
+   ``update_communities`` with a seeded churn batch (removals, wired
+   additions, deletions, insertions) on that graph with each scan and on
+   the SBM below (sort only), card and CPU and both scans giving the same
+   graph, labels and stats (Q bits included) and no disconnected
+   community.
 4. End to end, full size, on ``rmat_graph(scale=21, edge_factor=16,
    seed=1)`` (about 2.1M vertices and 63.5M directed edges, the scale of
    com-LiveJournal): ``detect()`` with default options (zero disconnected
@@ -43,9 +54,15 @@ result line):
    disconnected; its two candidates' modularities ``q_r`` and ``q_s``, the
    same bits on the card and the CPU, and its pick) and with 'fast'
    (LPA: its disconnected count reported), then ``louvain_staged`` (the
-   labels of the default ``detect()``).  Each run prints its wall time,
-   peak device memory and segment-reduce launches, whose count is set to
-   0 just before it and must be above 0 after it.
+   labels of the default ``detect()``).  Then one update batch at full
+   size from the default ``detect()``'s labels: 1,024 vertices removed,
+   1,024 added (each wired to 2), 32,768 undirected edges deleted and
+   16,384 inserted, with fewer slots filled than freed; the host prepare
+   (``prepare_graph_update``) timed apart from the warm update on the card
+   (zero disconnected, Q in (0, 1)), which runs twice on the same inputs
+   with the same bits.  Each run prints its wall time, peak device memory
+   and segment-reduce launches, whose count is set to 0 just before it and
+   must be above 0 after it.
 
 5. The kernel API vs plain, on the card: ``repro_torch.kernels.ops``'s
    ``cumsum``, ``segsum_sorted``, ``segsum``, ``spmm`` and
@@ -856,6 +873,239 @@ def small_phase():
                     f"card vs CPU mismatch on {name}, {algorithm}/{split}")
 
 
+DENSE_GRAPH = ("sbm_graph(1024, 16, 0.2, 0.003, seed=3, n_cap=1024, "
+               "m_cap=16384)")
+CHURN_GRAPH = "sbm_graph(2048, 24, 0.12, 0.002, seed=2)"
+
+
+def dense_graph(device):
+    """The dense scan's full-width graph: ``nv = 1025`` (``dense_max_nv``)
+    in the largest default service bucket, ``Bucket(1024, 16384)``."""
+    from repro_torch.graph import sbm_graph
+
+    return sbm_graph(1024, 16, 0.2, 0.003, seed=3, n_cap=1024, m_cap=16384,
+                     device=device)[0]
+
+
+def churn_graph(device):
+    from repro_torch.graph import sbm_graph
+
+    return sbm_graph(2048, 24, 0.12, 0.002, seed=2, device=device)[0]
+
+
+def same_detection(a, b) -> bool:
+    """Labels, stats, modularity bits and disconnected counts equal."""
+    import torch
+
+    return (torch.equal(a.labels.cpu(), b.labels.cpu()) and a.stats == b.stats
+            and a.modularity == b.modularity
+            and a.n_disconnected == b.n_disconnected)
+
+
+def dense_phase() -> int:
+    """Phase 3, the dense scan at its full width: ``detect()`` with
+    ``scan='dense'`` on the card and on the CPU and with ``scan='sort'`` on
+    the card, for every tier and split policy, all equal, and zero
+    disconnected communities wherever the run promises it.  Each card run
+    alone, with its wall time and segment-reduce launches.  Returns the
+    launches of the dense standard run."""
+    from repro_torch.core import DetectOptions, LouvainConfig, detect
+
+    g_card, g_cpu = dense_graph("cuda"), dense_graph("cpu")
+    n_live = int((g_cpu.src < g_cpu.n_cap).sum())
+    if n_live > g_cpu.m_cap:
+        raise AssertionError(f"{DENSE_GRAPH}: {n_live} edges do not fit")
+    log(f"  {DENSE_GRAPH}: nv={g_cpu.nv}, {n_live} directed edges in "
+        f"m_cap={g_cpu.m_cap}")
+    standard_launches = 0
+    for algorithm, split in tier_runs():
+        def opts(scan):
+            return DetectOptions(algorithm=algorithm, scan=scan,
+                                 louvain=LouvainConfig(split=split))
+
+        dense, wall, n, _ = timed_path(
+            lambda: detect(g_card, options=opts("dense")))
+        sort, wall_sort, n_sort, _ = timed_path(
+            lambda: detect(g_card, options=opts("sort")))
+        on_cpu = detect(g_cpu, options=opts("dense"), device="cpu")
+        equal = same_detection(dense, on_cpu) and same_detection(dense, sort)
+        log(f"  dense {algorithm}/{split}: card dense == CPU dense == card "
+            f"sort (labels, stats, Q bits)={equal}  communities="
+            f"{dense.n_communities}  disconnected={dense.n_disconnected}  "
+            f"sweeps={dense.stats['li_total']}  Q={dense.modularity:.9f}  "
+            f"card wall dense={wall} s ({n} segreduce launches)  sort="
+            f"{wall_sort} s ({n_sort})")
+        if not equal or (promises_connected(algorithm, split)
+                         and dense.n_disconnected):
+            raise AssertionError(
+                f"dense scan mismatch on {DENSE_GRAPH}, {algorithm}/{split}")
+        if (algorithm, split) == ("standard", "sp-pj"):
+            standard_launches = n
+    return standard_launches
+
+
+def crossover_checks():
+    """``scan='auto'``: the reference's ``choose_scan`` answers for the
+    shapes of its service test (tests/test_service.py), with the density
+    given, and 'dense' for every graph of at most 129 node slots."""
+    from repro_torch.core import DetectOptions
+
+    want = {(65, 512): "dense", (257, 2048): "dense", (257, 1024): "sort",
+            (1025, 16384): "sort", (1025, 65536): "dense",
+            (2049, 10**6): "sort"}
+    opts = DetectOptions(dense_min_density=0.02)
+    got = {shape: opts.resolved_scan(*shape) for shape in want}
+    small = DetectOptions().resolved_scan(129, 10**6)
+    log(f"  resolved_scan: {got}; nv=129: {small}")
+    if got != want or small != "dense":
+        raise AssertionError("resolved_scan differs from the reference's")
+
+
+def churn_batch(g, *, seed, remove, add, delete, insert):
+    """A seeded update batch with every kind of operation, made on the
+    host from ``g``: ``remove`` live vertices, ``add`` new vertices each
+    wired to 2 surviving ones, ``delete`` surviving undirected edges
+    (``dw = -w``) and ``insert`` new undirected edges of weight 1 between
+    survivors.  Edge ids are in the post-rewrite id space.  Returns
+    ``(GraphUpdate, directed slots freed, directed slots filled)``."""
+    import numpy as np
+
+    from repro_torch.core import GraphUpdate
+
+    src, dst, w = (t.cpu().numpy() for t in (g.src, g.dst, g.w))
+    n, nv = int(g.n_nodes), g.nv
+    rng = np.random.default_rng(seed)
+    rem = np.sort(rng.choice(n, remove, replace=False))
+    alive = np.zeros(nv, bool)
+    alive[:n] = True
+    alive[rem] = False
+    perm = np.full(nv, -1, np.int64)
+    perm[np.flatnonzero(alive)] = np.arange(n - remove)
+    n_keep = n - remove
+    live = src < g.n_cap
+    ps, pd = perm[src], perm[dst]
+    freed = int((live & ((ps < 0) | (pd < 0))).sum()) + 2 * delete
+    both = live & (ps >= 0) & (pd >= 0)
+    idx = rng.choice(np.flatnonzero(both & (src < dst)), delete,
+                     replace=False)
+    # survivors' keys in the new id space stay sorted (perm keeps order)
+    keys = ps[both] * (nv + 1) + pd[both]
+    lo, hi = rng.integers(0, n_keep, (2, 4 * insert))
+    lo, hi = np.minimum(lo, hi), np.maximum(lo, hi)
+    cand = lo * (nv + 1) + hi
+    pos = np.minimum(np.searchsorted(keys, cand), keys.size - 1)
+    fresh = (lo != hi) & (keys[pos] != cand)
+    _, first = np.unique(cand, return_index=True)
+    pick = np.sort(first[fresh[first]])[:insert]
+    if pick.size < insert:
+        raise AssertionError("too few new edges drawn")
+    new = np.arange(n_keep, n_keep + add)
+    a = rng.integers(0, n_keep, add)
+    b = (a + rng.integers(1, n_keep, add)) % n_keep    # a second, distinct
+    u = np.concatenate([ps[idx], np.repeat(new, 2), lo[pick]])
+    v = np.concatenate([pd[idx], np.stack([a, b], 1).ravel(), hi[pick]])
+    dw = np.concatenate([-w[idx], np.ones(2 * add + insert, np.float32)])
+    filled = 2 * (2 * add + insert)
+    return (GraphUpdate(u=u, v=v, dw=dw.astype(np.float32), add=add,
+                        remove=rem), freed, filled)
+
+
+def same_update(a, b) -> bool:
+    """Two ``update_communities`` results: graph arrays, labels and stats
+    (Q as float32 bits) equal."""
+    import torch
+
+    (ga, Ca, sa), (gb, Cb, sb) = a, b
+    return (all(torch.equal(getattr(ga, k).cpu(), getattr(gb, k).cpu())
+                for k in ("src", "dst", "w", "n_nodes"))
+            and torch.equal(Ca.cpu(), Cb.cpu()) and sa == sb)
+
+
+def dynamic_small_phase() -> int:
+    """Phase 3, ``update_communities``: a seeded churn batch on the dense
+    graph (each scan) and on the SBM above ``dense_max_nv`` (sort only),
+    from the standard tier's labels.  Card and CPU, and the two scans,
+    give equal graphs, labels and stats (Q bits included), with no
+    disconnected community.  Returns the launches of the dense card run."""
+    from repro_torch.core import detect, update_communities
+
+    dense_launches = 0
+    for name, make, scans, seed in ((DENSE_GRAPH, dense_graph,
+                                     ("sort", "dense"), 5),
+                                    (CHURN_GRAPH, churn_graph, ("sort",), 6)):
+        g_card, g_cpu = make("cuda"), make("cpu")
+        labels = detect(g_card).labels
+        upd, freed, filled = churn_batch(g_cpu, seed=seed, remove=16, add=8,
+                                         delete=64, insert=32)
+        first = None
+        for scan in scans:
+            on_card, wall, n, _ = timed_path(lambda: update_communities(
+                g_card, labels, upd, scan=scan))
+            on_cpu = update_communities(g_cpu, labels.cpu(), upd, scan=scan,
+                                        device="cpu")
+            first = first or on_card
+            st = on_card[2]
+            equal = same_update(on_card, on_cpu)
+            same_scans = same_update(on_card, first)
+            log(f"  update {name} {scan}: card == CPU (graph, labels, stats, "
+                f"Q bits)={equal}  == sort scan={same_scans}  slots freed "
+                f"{freed} >= filled {filled}  iterations={st['iterations']}"
+                f"  affected={st['n_affected']}  communities="
+                f"{st['n_communities']}  disconnected={st['n_disconnected']}"
+                f"  Q={st['q']:.9f}  card wall={wall} s ({n} segreduce "
+                f"launches)")
+            if not (equal and same_scans) or st["n_disconnected"] \
+                    or on_cpu[2]["n_disconnected"]:
+                raise AssertionError(f"update mismatch on {name}, {scan}")
+            if scan == "dense":
+                dense_launches = n
+    return dense_launches
+
+
+def dynamic_phase(g, labels) -> int:
+    """Phase 4, one update batch at full size from the standard tier's
+    labels: 1,024 vertices removed, 1,024 added (each wired to 2), 32,768
+    undirected edges deleted and 16,384 inserted.  The host folds apart
+    from the warm update on the card, which runs twice on the same inputs
+    and must give the same bits.  Returns the warm update's launches."""
+    import torch
+
+    from repro_torch.core.dynamic import prepare_graph_update, warm_update
+
+    t0 = time.perf_counter()
+    upd, freed, filled = churn_batch(g, seed=21, remove=1024, add=1024,
+                                     delete=32768, insert=16384)
+    t_make = time.perf_counter() - t0
+    if filled > freed:
+        raise AssertionError(f"the batch fills {filled} slots > {freed} freed")
+    t0 = time.perf_counter()
+    g_new, C_host, touched, info = prepare_graph_update(g, labels, upd)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    C0 = torch.from_numpy(C_host).cuda()
+    T0 = torch.from_numpy(touched).cuda()
+    out, wall, n, peak = timed_path(lambda: warm_update(g_new, C0, T0))
+    again = warm_update(g_new, C0, T0)
+    same = torch.equal(out["C"], again["C"]) and out["q"] == again["q"]
+    log(f"  update_communities: batch made in {t_make} s (slots freed "
+        f"{freed} >= filled {filled}); host prepare={t_prep} s (n_deleted="
+        f"{info['n_deleted']} n_added={info['n_added']} n_removed="
+        f"{info['n_removed']}); warm update on the card={wall} s  "
+        f"iterations={out['iterations']}  affected={out['n_affected']}  "
+        f"split_moved={out['split_moved']}  communities="
+        f"{out['n_communities']}  disconnected={out['n_disconnected']}  "
+        f"Q={out['q']:.6f}  segreduce launches={n}  peak device memory="
+        f"{peak:.2f} GiB  second run same bits={same}")
+    if out["n_disconnected"] != 0:
+        raise AssertionError(f"{out['n_disconnected']} disconnected after "
+                             "the update")
+    if not 0.0 < out["q"] < 1.0:
+        raise AssertionError(f"update: modularity {out['q']} not in (0, 1)")
+    if not same:
+        raise AssertionError("a second warm_update gave other bits")
+    return n
+
+
 def timed_path(fn):
     """Run ``fn()`` once on the card with the segment-reduce kernel's
     launch count set to 0 just before: ``(result, wall seconds, launches,
@@ -1019,6 +1269,7 @@ def main(argv=None) -> int:
                     "calls of each segsum, cumsum and spmm case of phase 5 "
                     "too")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1062,6 +1313,9 @@ def main(argv=None) -> int:
 
     log("phase 3: end to end, small, card vs CPU")
     small_phase()
+    dense_launches = dense_phase()
+    crossover_checks()
+    update_dense_launches = dynamic_small_phase()
 
     log("phase 4: end to end, full size, on the card")
     phase_seconds = {}
@@ -1084,6 +1338,10 @@ def main(argv=None) -> int:
         raise AssertionError("labels out of [0, n_communities)")
     by_path = {"detect standard": launches}
     by_path.update(tiers_phase(g, res))
+    by_path["update_communities (warm update)"] = dynamic_phase(g, res.labels)
+    by_path[f"detect dense standard, {DENSE_GRAPH}"] = dense_launches
+    by_path[f"update_communities dense, {DENSE_GRAPH}"] = \
+        update_dense_launches
 
     if args.profile:
         for algorithm in ("standard", "max-quality", "fast"):
@@ -1095,6 +1353,7 @@ def main(argv=None) -> int:
     entry["launches"] = launches
     entry["launches_by_path"] = by_path
     log(json.dumps({"kernels": [entry] + api_entries}))
+    log(f"chip_smoke total: {time.perf_counter() - t_start} s")
     log(card)
     # the run uses one card, whatever else the machine holds
     log(json.dumps({"ok": True, "device": {

@@ -11,17 +11,23 @@ from repro_torch.core.lpa import lpa, lpa_run
 from repro_torch.core.portfolio import (
     ALGORITHMS, QualityContract, contract_for, tier_config,
 )
+from repro_torch.core.dynamic import (
+    CapacityError, GraphUpdate, apply_vertex_updates, update_communities,
+)
 # the unified entry point (NOTE: rebinds the package attribute `detect`
 # from the submodule to the function, as in the reference package)
 from repro_torch.core.api import Detection, DetectOptions, detect
 
 __all__ = [
     "ALGORITHMS",
+    "CapacityError",
     "Detection",
     "DetectOptions",
+    "GraphUpdate",
     "LouvainConfig",
     "QualityContract",
     "aggregate",
+    "apply_vertex_updates",
     "contract_for",
     "detect",
     "disconnected_communities",
@@ -35,4 +41,5 @@ __all__ = [
     "refine_labels",
     "split_labels",
     "tier_config",
+    "update_communities",
 ]

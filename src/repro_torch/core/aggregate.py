@@ -7,6 +7,13 @@ super-edge is written at slot r and the tail is ghost-padded, which keeps
 the sort invariant and the ghost convention of the container.  Self-runs
 ``(c, c)`` become super-vertex self-loops carrying the community's internal
 weight, so ``sum_i K_i = 2m`` holds across passes.
+
+The reference's ``impl='dense'`` has no counterpart: it fills an
+``[nv, nv]`` super-adjacency with a scatter-add, which follows edge order
+on XLA's CPU backend but has no fixed order on CUDA.  Its nonzero cells,
+read in flat ``(c1, c2)`` order, are the sort formulation's runs in run
+order, so this function gives the dense impl's arrays bit for bit and the
+dense scan calls it too.
 """
 from __future__ import annotations
 

@@ -5,10 +5,14 @@
     res = detect(g)                  # on CUDA; detect(g, device="cpu")
     res.labels, res.modularity, res.n_disconnected
 
-Ported fields: ``algorithm``, ``louvain`` and ``scan``.  ``scan='auto'``
-resolves to the sortscan until the dense twin and its crossover are ported
-(ROADMAP queue A, item 6); the reference guarantees both scans give the
-same labels bit for bit.
+Ported fields: ``algorithm``, ``louvain``, ``scan`` and the dense-scan
+crossover (``dense_max_nv``, ``dense_small_nv``, ``dense_min_density``).
+``detect()`` resolves ``scan='auto'`` by the graph's shape
+(:meth:`DetectOptions.resolved_scan`), as the reference's does: small
+graphs take the dense scan.  Both scans give the same labels bit for bit.
+The reference's ``seg_impl``, ``block_m`` and ``mesh`` have no counterpart
+yet: dispatch is by device (``kernels/ops.py``), and sharding is ROADMAP
+queue A, item 10.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.core.portfolio import (
     ALGORITHMS, QualityContract, run_detection,
 )
 from repro_torch.device import resolve_device
+from repro_torch.service.buckets import choose_scan
 
 _SCANS = ("auto", "sort", "dense")
 
@@ -33,13 +38,19 @@ class DetectOptions:
     Fields:
       algorithm: 'fast' | 'standard' | 'max-quality' — the portfolio tier.
       louvain:   the algorithm config (passes, tolerance ladder, split).
-      scan:      'auto' | 'sort' — community-scan layout; 'dense' is not
-                 ported yet and raises.
+      scan:      'auto' | 'sort' | 'dense' — community-scan layout; 'auto'
+                 resolves per shape (:meth:`resolved_scan`).
+      dense_max_nv / dense_small_nv / dense_min_density: the dense-scan
+                 crossover thresholds 'auto' consults
+                 (``service/buckets.py:choose_scan``).
     """
 
     algorithm: str = "standard"
     louvain: LouvainConfig = LouvainConfig()
     scan: str = "auto"
+    dense_max_nv: int = 1025
+    dense_small_nv: int = 129
+    dense_min_density: Optional[float] = None
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
@@ -48,9 +59,18 @@ class DetectOptions:
                 f"got {self.algorithm!r}")
         if self.scan not in _SCANS:
             raise ValueError(f"scan must be one of {_SCANS}, got {self.scan!r}")
-        if self.scan == "dense":
-            raise NotImplementedError(
-                "scan='dense' is not ported yet (ROADMAP queue A, item 6)")
+
+    def resolved_scan(self, nv: int, m_cap: int, *,
+                      device_type: str = "cuda") -> str:
+        """Concrete 'sort' | 'dense' for a shape: ``scan`` itself, or for
+        'auto' the crossover of ``choose_scan`` (with the calibration of
+        ``device_type`` where ``dense_min_density`` is ``None``)."""
+        if self.scan != "auto":
+            return self.scan
+        return choose_scan(nv, m_cap, dense_max_nv=self.dense_max_nv,
+                           dense_small_nv=self.dense_small_nv,
+                           dense_min_density=self.dense_min_density,
+                           device_type=device_type)
 
 
 @dataclasses.dataclass(frozen=True)

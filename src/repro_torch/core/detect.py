@@ -13,8 +13,13 @@ from repro_torch.core.split import split_labels
 from repro_torch.kernels import ops
 
 
-def disconnected_communities(src, dst, w, C, n_nodes) -> dict:
+def disconnected_communities(src, dst, w, C, n_nodes, *, impl: str = "coo",
+                             adj=None) -> dict:
     """Flags and counts of internally-disconnected communities.
+
+    ``impl`` picks the split fixpoint's formulation ('coo' | 'dense', see
+    :func:`repro_torch.core.split.split_labels`); ``adj`` shares the dense
+    scan's bool[nv, nv] adjacency with it.
 
     Returns a dict with ``disconnected`` (bool[nv] per community id),
     ``n_disconnected`` and ``n_communities`` (int32[]) and ``fraction``
@@ -24,7 +29,7 @@ def disconnected_communities(src, dst, w, C, n_nodes) -> dict:
     ghost = nv - 1
     node_valid = torch.arange(nv, device=C.device) < n_nodes
 
-    L, _ = split_labels(src, dst, w, C, mode="pj")
+    L, _ = split_labels(src, dst, w, C, mode="pj", impl=impl, adj=adj)
     # count distinct (C, L) pairs per community: sort pairs, count run starts
     c_key = torch.where(node_valid, C, ghost).to(torch.int32)
     l_key = torch.where(node_valid, L, ghost).to(torch.int32)

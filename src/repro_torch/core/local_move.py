@@ -1,5 +1,5 @@
-"""Local-moving phase of GSP-Louvain (paper Algorithm 4), sortscan path
-(port of ``repro/core/local_move.py``).
+"""Local-moving phase of GSP-Louvain (paper Algorithm 4; port of
+``repro/core/local_move.py``): the sortscan and its dense twin.
 
 The whole edge set is sorted by ``(src, C[dst])`` once per half-sweep;
 equal keys form runs and one in-order run sum yields every ``K_{i->c}``
@@ -10,16 +10,21 @@ anchored joins, pruning and best-Q tracking are the reference's: see its
 module docstring.  Here the ``lax.while_loop`` is a Python loop driven from
 the host, which reads one scalar per sweep to test convergence.
 
+``scan='dense'`` (:func:`_half_sweep_dense`, for small ``nv``) takes the
+same decisions on ``[nv, nv]`` community matrices filled from the same
+in-order run sums, and wakes neighbours through a bool[nv, nv] adjacency;
+its results are the sortscan's bit for bit.
+
 Every reduction that feeds a move or a convergence decision folds in index
 order: the sorted ones through the segment-reduce kernel, the Sigma
 recompute keyed by the unsorted ``C_new`` through a stable sort and the
 same kernel (``ops.segment_sum_inorder``).  The two flat sums of
 :func:`realized_modularity`, which feed the best-Q and convergence tests,
 and 2m (``Graph.total_weight_2m``), which scales every Eq.-2 score, are
-two-level in-order folds (``ops.sum_inorder``): the same bits on the card
-and on the CPU.  They round like any float32 sum once they pass 2**24, so
-they need not equal the reference's ``jnp.sum``, which folds in another
-order.
+fixed-order trees of in-order folds (``ops.sum_inorder``): the same bits
+on the card and on the CPU.  They round like any float32 sum once they
+pass 2**24, so they need not equal the reference's ``jnp.sum``, which
+folds in another order.
 """
 from __future__ import annotations
 
@@ -137,33 +142,133 @@ def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
     return C_new, Sigma_new, move, gain, want
 
 
-def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
-               sync: str = "handshake", prune: bool = True):
-    """Run the local-moving phase to convergence.
+def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
+                      target_ok=None, anchored=True, valid_cell=None):
+    """Dense twin of :func:`_half_sweep` for small ``nv``: the same
+    contract and the same bits, with every decision taken on ``[nv, nv]``
+    community matrices (row i: vertex i; column c: community c).
 
-    ``tau`` is a float32 threshold (a numpy float32 or Python float holding
-    a float32 value).  Returns ``(C, Sigma, l_i)``: the best-realized-Q
-    membership, its community weights, and the paper's iteration count
-    ``l_i`` as a Python int (``l_i <= 1`` is the global convergence signal).
+    The reference fills its matrices with one complex-packed scatter-add,
+    which gives the sortscan's run sums only because XLA on the CPU adds
+    duplicate indices in edge order.  On the card a scatter-add is atomic
+    and folds in no fixed order, so here each cell's sum is the sortscan's
+    own pass A (stable sort by ``(src, C[dst])``, a 2-channel in-order run
+    sum) written into its cell by a plain index assignment: every element
+    of a run writes the run's one sum, so the order of the writes does not
+    matter.  A cell no edge reaches holds +0.0, as in the reference, and
+    the reference's predicates on the matrices (``W_all > 0`` for
+    ``want``, ``W_frz > 0`` for a candidate) are kept as they are: a run
+    of zero-weight edges (refine's masked edges) exists but is no
+    candidate.  Row max and min, the only other reductions, are exact in
+    any order.  ``valid_cell`` is the loop-invariant ``(i < ghost) &
+    (c < ghost)`` mask, hoisted by the caller.  The reference's ``owned``
+    and ``axis`` (its sharded harness) have no counterpart here.
     """
+    nv = C.shape[0]
+    ghost = nv - 1
+    ids = torch.arange(nv, dtype=torch.int32, device=C.device)
+    c_ids = ids[None, :]
+    if valid_cell is None:
+        valid_cell = (ids[:, None] < ghost) & (c_ids < ghost)
+
+    # --- pass A of the sortscan: true and anchored K_{i->c} per run ------
+    cd = C[dst]
+    s_src, s_cd, perm = seg.sort_runs(src, cd)
+    s_dst = dst[perm]
+    s_w = w[perm]
+    not_self = s_src != s_dst  # exclude self-loops from scan (paper Alg. 4)
+    w_all = torch.where(not_self, s_w, 0.0)
+    w_frozen = (torch.where(not_self & ~movable[s_dst], s_w, 0.0)
+                if anchored else w_all)
+    rid = seg.run_ids(seg.run_starts(s_src, s_cd))
+    Wc = seg.runs_reduce(torch.stack([w_all, w_frozen], dim=1), rid,
+                         src.shape[0])[rid]
+    cell = s_src.to(torch.int64) * nv + s_cd
+    W_all = torch.zeros(nv * nv, dtype=torch.float32, device=C.device)
+    W_frz = torch.zeros_like(W_all)
+    W_all[cell] = Wc[:, 0]
+    W_frz[cell] = Wc[:, 1]
+    W_all = W_all.view(nv, nv)    # true K_{i->c} per (vertex, community)
+    W_frz = W_frz.view(nv, nv)    # anchored K_{i->c}
+
+    # --- K_{i->d}: true weight to own community (excluding self) ---------
+    K_own = W_all[ids, C]
+
+    # --- delta-modularity per candidate cell (paper Eq. 2) ---------------
+    Ki = K[:, None]
+    dq = (
+        2.0 * (W_all - K_own[:, None]) / two_m
+        - 2.0 * Ki * (Ki + Sigma[None, :] - Sigma[C][:, None])
+        / (two_m * two_m)
+    )
+    geom = valid_cell & (c_ids != C[:, None])
+    cand = geom & (W_frz > 0.0) & movable[:, None]
+    if target_ok is not None:
+        cand = cand & target_ok[None, :]
+    want = torch.amax(torch.where(geom & (W_all > 0.0), dq, NEG), dim=1) > 0.0
+
+    # --- argmax per source vertex (min community id breaks ties) ---------
+    dq_cand = torch.where(cand, dq, NEG)
+    best = torch.amax(dq_cand, dim=1)
+    c_star = torch.amin(
+        torch.where(cand & (dq_cand >= best[:, None]), c_ids, seg.INT_MAX),
+        dim=1)
+    move = (best > 0.0) & (c_star < ghost)
+    C_new = torch.where(move, c_star, C)
+    C_new[ghost] = ghost
+
+    # --- exact Sigma recompute: identical to the sort path ----------------
+    Sigma_new = ops.segment_sum_inorder(K, C_new, nv)
+    gain = torch.sum(torch.where(move, best, 0.0))
+    return C_new, Sigma_new, move, gain, want
+
+
+def dense_adjacency(src, dst, nv: int) -> torch.Tensor:
+    """bool[nv, nv] edge adjacency of the dense scan: a plain assignment
+    of ``True`` (no accumulation), exact in any order."""
+    adj = torch.zeros((nv, nv), dtype=torch.bool, device=src.device)
+    adj[src.long(), dst.long()] = True
+    return adj
+
+
+def wake_neighbours(moved, src, dst, nv: int, adj=None) -> torch.Tensor:
+    """bool[nv]: the vertices with a neighbour in ``moved``.  Keyed by the
+    sorted src (on the symmetric directed COO out- and in-neighbours
+    coincide, and booleans make it exact), or a column ``any`` of the
+    dense scan's adjacency."""
+    if adj is not None:
+        return torch.any(adj & moved[:, None], dim=0)
+    return ops.segreduce_sorted(moved[dst].to(torch.int32), src, nv,
+                                op="max") > 0
+
+
+def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
+               prune, active0, warm, scan, adj):
+    """The sweep loop shared by :func:`local_move` and the warm start of
+    ``core/dynamic.py``.  Returns ``(C_best, Sigma_best, l_i, sweeps)``.
+
+    ``warm`` keeps a vertex awake only while it is active and wants a
+    move (``nbr_moved | (want & active)``), as the reference's warm local
+    move does; the cold loop wakes every wanting vertex."""
     nv = C0.shape[0]
     ghost = nv - 1
     dev = C0.device
     tau = np.float32(tau)
     ids = torch.arange(nv, dtype=torch.int32, device=dev)
-    if sync == "handshake":
-        phases = ((0, 1), (1, 0))       # (mover parity, target parity)
-    elif sync == "parity":
-        phases = ((0, None), (1, None))
-    elif sync == "all":                 # plain synchronous Jacobi (ablation)
-        phases = ((None, None),)
+    if scan == "dense":
+        sweep = _half_sweep_dense
+        if adj is None:
+            adj = dense_adjacency(src, dst, nv)
+        kw = dict(valid_cell=(ids[:, None] < ghost) & (ids[None, :] < ghost))
+    elif scan == "sort":
+        sweep, adj, kw = _half_sweep, None, {}
     else:
-        raise ValueError(f"unknown sync mode {sync!r}")
+        raise ValueError(f"scan must be 'sort' or 'dense', got {scan!r}")
 
     C = C0.to(torch.int32).clone()
     C[ghost] = ghost
     Sigma = Sigma0
-    active = torch.ones(nv, dtype=torch.bool, device=dev)
+    active = active0
     q_prev = realized_modularity(src, dst, w, C, Sigma, two_m)
     C_best, Sigma_best, q_best = C, Sigma, q_prev
     dQ_iter = dQ_prev = np.float32(np.inf)
@@ -176,18 +281,16 @@ def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
         for ph, tp in phases:
             movable = active if ph is None else active & (pbit == ph)
             target_ok = None if tp is None else (pbit == tp)
-            C, Sigma, moved, _, want = _half_sweep(
+            C, Sigma, moved, _, want = sweep(
                 src, dst, w, C, K, Sigma, two_m, movable,
-                target_ok=target_ok, anchored=ph is not None)
+                target_ok=target_ok, anchored=ph is not None, **kw)
             moved_any = moved_any | moved
         q_now = realized_modularity(src, dst, w, C, Sigma, two_m)
         if prune:
-            # neighbours of moved vertices wake up; everyone else sleeps.
-            # Keyed by the sorted src: on the symmetric directed COO out-
-            # and in-neighbours coincide, and booleans make it exact.
-            nbr_moved = ops.segreduce_sorted(
-                moved_any[dst].to(torch.int32), src, nv, op="max") > 0
-            active = nbr_moved | want   # schedule-blocked desire stays awake
+            # neighbours of moved vertices wake up; everyone else sleeps
+            nbr_moved = wake_neighbours(moved_any, src, dst, nv, adj)
+            # schedule-blocked desire stays awake
+            active = nbr_moved | ((want & active) if warm else want)
         else:
             active = torch.ones(nv, dtype=torch.bool, device=dev)
         better = q_now > q_best
@@ -201,4 +304,37 @@ def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
         n_prod += int(gain > tau)
     # li keeps the paper's semantics: li == 1 <=> no productive iteration
     li = min(n_prod + 1, it)
-    return C_best, Sigma_best, max(li, 1)
+    return C_best, Sigma_best, max(li, 1), it
+
+
+SYNC_PHASES = {
+    "handshake": ((0, 1), (1, 0)),      # (mover parity, target parity)
+    "parity": ((0, None), (1, None)),
+    "all": ((None, None),),             # plain synchronous Jacobi (ablation)
+}
+
+
+def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
+               sync: str = "handshake", prune: bool = True,
+               scan: str = "sort", adj=None):
+    """Run the local-moving phase to convergence.
+
+    ``tau`` is a float32 threshold (a numpy float32 or Python float holding
+    a float32 value).  Returns ``(C, Sigma, l_i)``: the best-realized-Q
+    membership, its community weights, and the paper's iteration count
+    ``l_i`` as a Python int (``l_i <= 1`` is the global convergence signal).
+
+    ``scan='dense'`` sweeps with :func:`_half_sweep_dense` (the same bits)
+    and wakes neighbours through the bool[nv, nv] adjacency ``adj``, built
+    here from the edges when not given (the pass loop shares one with the
+    split).
+    """
+    if sync not in SYNC_PHASES:
+        raise ValueError(f"unknown sync mode {sync!r}")
+    nv = C0.shape[0]
+    active0 = torch.ones(nv, dtype=torch.bool, device=C0.device)
+    C, Sigma, li, _ = _move_loop(
+        src, dst, w, C0, K, Sigma0, two_m, tau=tau, max_iters=max_iters,
+        phases=SYNC_PHASES[sync], prune=prune, active0=active0, warm=False,
+        scan=scan, adj=adj)
+    return C, Sigma, li

@@ -22,6 +22,12 @@ can leave a part unconnected, and the reference returns such communities
 unconnected into its connected pieces.  Where none did, the labels are
 the reference's.
 
+``scan`` picks the phases' formulation: 'sort' (the sortscan) or 'dense'
+(local move and split on ``[nv, nv]`` matrices with one adjacency a pass
+shared by the two; both scans aggregate by the sort formulation, see
+``core/aggregate.py``); the two give the same labels and stats bit for
+bit.
+
 :func:`louvain_staged` is the reference's Figure-5 entry point: the same loop
 with wall seconds per phase and per pass, and the reference's host
 arithmetic in float64.
@@ -36,7 +42,7 @@ import torch
 
 from repro_torch.core import _segments as seg
 from repro_torch.core.aggregate import aggregate
-from repro_torch.core.local_move import local_move
+from repro_torch.core.local_move import dense_adjacency, local_move
 from repro_torch.core.split import split_labels
 from repro_torch.device import resolve_device
 from repro_torch.graph.container import Graph, strip_padding
@@ -44,6 +50,7 @@ from repro_torch.kernels import ops
 
 SPLITS = ("none", "sp-lp", "sp-lpp", "sp-pj", "sl-lp", "sl-lpp", "sl-pj",
           "refine")
+SCANS = ("sort", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +69,11 @@ class LouvainConfig:
 def _check_split(split: str) -> None:
     if split not in SPLITS:
         raise ValueError(f"split must be one of {SPLITS}, got {split!r}")
+
+
+def _check_scan(scan: str) -> None:
+    if scan not in SCANS:
+        raise ValueError(f"scan must be one of {SCANS}, got {scan!r}")
 
 
 def _split_mode(split: str) -> str:
@@ -89,7 +101,8 @@ class _Clock:
         return res
 
 
-def refine_labels(src, dst, w, C, two_m, *, tau, max_iters: int = 10):
+def refine_labels(src, dst, w, C, two_m, *, tau, max_iters: int = 10,
+                  scan: str = "sort", adj=None):
     """Leiden refinement: local-move from singletons within each community
     of ``C`` (cross-community weights zeroed, zero-weight edges kept in the
     edge list), scored against the full graph's ``two_m``.  Returns a
@@ -99,7 +112,9 @@ def refine_labels(src, dst, w, C, two_m, *, tau, max_iters: int = 10):
     sweep (ROADMAP C.7).
 
     As in the reference, the local move runs with its default ``sync``
-    ('handshake') and ``prune`` (True), whatever the pass's config says.
+    ('handshake') and ``prune`` (True), whatever the pass's config says,
+    and with the pass's ``scan``.  ``adj`` shares the dense scan's
+    adjacency of the same edges (the masked edges keep every pair).
     The reference's ``axis``, ``owned`` and ``skip`` have no counterpart in
     this host loop, and its backend knobs none on a device-dispatched
     reduce.
@@ -109,18 +124,23 @@ def refine_labels(src, dst, w, C, two_m, *, tau, max_iters: int = 10):
     K_in = ops.segreduce_sorted(w_in, src, nv, op="sum")
     C0 = torch.arange(nv, dtype=torch.int32, device=C.device)
     R, _, _ = local_move(src, dst, w_in, C0, K_in, K_in, two_m, tau=tau,
-                         max_iters=max_iters)
+                         max_iters=max_iters, scan=scan, adj=adj)
     return R
 
 
-def _split_slot(cfg: LouvainConfig, src, dst, w, C, two_m, tau):
+def _split_slot(cfg: LouvainConfig, src, dst, w, C, two_m, tau, scan, adj):
     """The labels the pass's split slot gives: refined or split ``C``."""
     if cfg.split == "refine":
         return refine_labels(src, dst, w, C, two_m, tau=tau,
-                             max_iters=cfg.max_iters)
+                             max_iters=cfg.max_iters, scan=scan, adj=adj)
     labels, _ = split_labels(src, dst, w, C, mode=_split_mode(cfg.split),
-                             max_iters=cfg.split_max_iters)
+                             max_iters=cfg.split_max_iters,
+                             impl=_split_impl(scan), adj=adj)
     return labels
+
+
+def _split_impl(scan: str) -> str:
+    return "dense" if scan == "dense" else "coo"
 
 
 def _split_unconnected(live, C, node_mask):
@@ -141,12 +161,16 @@ def _split_unconnected(live, C, node_mask):
 
 
 def _louvain(g: Graph, cfg: LouvainConfig, clock: _Clock,
-             pass_seconds: list | None = None):
+             pass_seconds: list | None = None, scan: str = "sort"):
     """The pass loop of :func:`louvain_impl`; with ``pass_seconds`` (the
     staged entry point) it appends each pass's wall seconds there and keeps
     ``tau`` and the shrink test in float64 on the host, as the reference's
-    ``louvain_staged`` does (its ``louvain_impl`` keeps them in float32)."""
+    ``louvain_staged`` does (its ``louvain_impl`` keeps them in float32).
+    ``scan='dense'`` builds one bool[nv, nv] adjacency a pass, shared by
+    the local move and the split slot, and runs the dense split."""
     _check_split(cfg.split)
+    _check_scan(scan)
+    dense = scan == "dense"
     staged = pass_seconds is not None
     nv = g.nv
     dev = g.device
@@ -170,11 +194,14 @@ def _louvain(g: Graph, cfg: LouvainConfig, clock: _Clock,
         node_valid = ids < n_cur
         # aggregation emits run-sorted super-edges, so esrc stays sorted
         K = clock.run("other", ops.segreduce_sorted, ew, esrc, nv, op="sum")
+        adj = (clock.run("other", dense_adjacency, esrc, edst, nv)
+               if dense else None)
         C, _, li = clock.run(
             "local_move", local_move, esrc, edst, ew, ids, K, K, two_m,
-            tau=tau, max_iters=cfg.max_iters, sync=cfg.sync, prune=cfg.prune)
+            tau=tau, max_iters=cfg.max_iters, sync=cfg.sync, prune=cfg.prune,
+            scan=scan, adj=adj)
         labels = (clock.run("split", _split_slot, cfg, esrc, edst, ew, C,
-                            two_m, tau) if in_slot else C)
+                            two_m, tau, scan, adj) if in_slot else C)
         C_dense, n_comms = clock.run("other", seg.renumber, labels,
                                      node_valid, nv)
         # split-pass trigger count: vertices the split moved (telemetry)
@@ -202,7 +229,8 @@ def _louvain(g: Graph, cfg: LouvainConfig, clock: _Clock,
         # split last: once, on the original graph's top-level labels
         labels, _ = clock.run("split", split_labels, *live, Ctop,
                               mode=_split_mode(cfg.split),
-                              max_iters=cfg.split_max_iters)
+                              max_iters=cfg.split_max_iters,
+                              impl=_split_impl(scan))
         split_moved += int(torch.sum((labels != Ctop) & node_mask))
         Ctop, _ = seg.renumber(labels, node_mask, nv)
     elif cfg.split == "refine":
@@ -216,28 +244,36 @@ def _louvain(g: Graph, cfg: LouvainConfig, clock: _Clock,
 
 
 def louvain_impl(g: Graph, cfg: LouvainConfig = LouvainConfig(), *,
-                 phase_seconds: dict | None = None):
+                 scan: str = "sort", phase_seconds: dict | None = None):
     """Run GSP-Louvain on ``g`` where it lies.
 
     Returns ``(C int32[nv] dense top-level membership, stats)`` with stats
     passes / li_last / li_total / split_moved / n_communities as Python
     ints.  Ghost and padding vertices map to the trailing community ids.
 
+    ``scan``: 'sort' (the sortscan) or 'dense' (local move and split on
+    ``[nv, nv]`` matrices, for small graphs); the two give the same labels
+    and stats bit for bit.
+
     ``phase_seconds``: a dict to which the wall seconds of each phase
     (local_move, split, aggregate, other) are added, with the device
     synchronized at every phase edge; ``None`` adds no synchronization.
     """
-    return _louvain(g, cfg, _Clock(phase_seconds, g.device))
+    return _louvain(g, cfg, _Clock(phase_seconds, g.device), scan=scan)
 
 
-def louvain(g: Graph, cfg: LouvainConfig | None = None, *, device=None):
+def louvain(g: Graph, cfg: LouvainConfig | None = None, *,
+            scan: str = "sort", device=None):
     """GSP-Louvain, the public entry point: ``(C, stats)``.
 
-    Runs on ``device`` (``None`` = CUDA; raises when CUDA is absent),
-    moving the graph there first if needed.
+    ``scan``: 'sort', 'dense' or 'auto', which means 'sort' here as in the
+    reference's ``louvain()`` (only ``detect()`` resolves 'auto' by the
+    graph's shape).  Runs on ``device`` (``None`` = CUDA; raises when CUDA
+    is absent), moving the graph there first if needed.
     """
     g = g.to(resolve_device(device))
-    return louvain_impl(g, cfg if cfg is not None else LouvainConfig())
+    return louvain_impl(g, cfg if cfg is not None else LouvainConfig(),
+                        scan="sort" if scan == "auto" else scan)
 
 
 def louvain_staged(g: Graph, cfg: LouvainConfig | None = None, *,

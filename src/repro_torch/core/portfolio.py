@@ -93,24 +93,30 @@ def _standard_config(cfg: LouvainConfig) -> LouvainConfig:
 def partition(g, options, *, phase_seconds=None):
     """Run one portfolio tier on one graph where it lies: ``(C, stats)``.
 
+    The pass loops run ``options.scan``, where 'auto' means 'sort', as in
+    the reference's ``partition`` (:func:`run_detection` resolves 'auto'
+    by the graph's shape first).  The fast tier has no scan.
+
     ``phase_seconds`` (a dict or ``None``) collects the phases of the pass
     loop (both of max-quality's candidates add into the same keys), 'lpa'
     for the fast tier, and 'select' for max-quality's two modularities.
     """
     algorithm = options.algorithm
     contract_for(algorithm)
+    scan = "sort" if options.scan == "auto" else options.scan
     if algorithm == "fast":
         C, iters = _Clock(phase_seconds, g.device).run("lpa", lpa_run, g)
         n = int(seg.count_communities(C, g.node_mask(), g.nv))
         return C, dict(passes=1, li_last=iters, li_total=iters,
                        split_moved=0, n_communities=n)
     if algorithm == "standard":
-        return louvain_impl(g, options.louvain, phase_seconds=phase_seconds)
+        return louvain_impl(g, options.louvain, scan=scan,
+                            phase_seconds=phase_seconds)
     # max-quality: the refined candidate, the GSP one, the better of the two
     C_r, st_r = louvain_impl(g, tier_config(algorithm, options.louvain),
-                             phase_seconds=phase_seconds)
+                             scan=scan, phase_seconds=phase_seconds)
     C_s, st_s = louvain_impl(g, _standard_config(options.louvain),
-                             phase_seconds=phase_seconds)
+                             scan=scan, phase_seconds=phase_seconds)
     live = strip_padding(g.src, g.dst, g.w, g.ghost)
     clock = _Clock(phase_seconds, g.device)
     q_r = clock.run("select", modularity, *live, C_r)
@@ -122,13 +128,18 @@ def run_detection(graph, options, *, phase_seconds=None):
     """Partition + detector + modularity + contract: the body of
     :func:`repro_torch.core.api.detect`.
 
+    ``scan='auto'`` is resolved by the graph's shape first
+    (``DetectOptions.resolved_scan``, on the graph's device type), as the
+    reference's ``run_detection`` does: small graphs take the dense scan.
     ``n_disconnected`` is always measured, so the tier's contract is
     checked, not assumed.  ``phase_seconds`` (a dict or ``None``) collects
     :func:`partition`'s phase times plus 'detector' and 'modularity'.
     """
     from repro_torch.core.api import Detection
 
-    C, stats = partition(graph, options, phase_seconds=phase_seconds)
+    opts_run = dataclasses.replace(options, scan=options.resolved_scan(
+        graph.nv, graph.m_cap, device_type=graph.device.type))
+    C, stats = partition(graph, opts_run, phase_seconds=phase_seconds)
     # int() and float() wait for the device, so the host clock is honest
     t0 = time.perf_counter()
     src, dst, w = strip_padding(graph.src, graph.dst, graph.w, graph.ghost)

@@ -1,5 +1,5 @@
 """Splitting phase: partition internally-disconnected communities (port of
-``repro/core/split.py``, the ``coo`` impl).
+``repro/core/split.py``, both impls).
 
 * ``lp``  — minimum-label Label Propagation (paper Alg. 1, LP).
 * ``lpp`` — LP with Pruning (paper Alg. 1, LPP).
@@ -11,6 +11,10 @@ All variants reach the same fixpoint: ``L[i]`` = min vertex id within
 (community of i) ∩ (connected component of i restricted to it).  Label math
 is integer min/max, so every formulation is exact.  The ``lax.while_loop``
 is a Python loop driven from the host, which reads one flag per round.
+
+``impl='coo'`` reduces over the edges with the segment-reduce kernel;
+``impl='dense'`` (the dense scan's) holds the same-community adjacency as a
+bool[nv, nv] matrix and takes a row min a round.
 """
 from __future__ import annotations
 
@@ -20,9 +24,31 @@ from repro_torch.core._segments import INT_MAX
 from repro_torch.kernels import ops
 
 MODES = ("lp", "lpp", "pj")
+IMPLS = ("coo", "dense")
 
 
-def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0):
+def _same_community_adjacency(src, dst, C, adj=None) -> torch.Tensor:
+    """bool[nv, nv]: the dense impl's same-community adjacency between
+    real vertices, masked from the caller's edge adjacency ``adj`` or
+    assigned from the edges (``True`` only, no accumulation: exact in any
+    order)."""
+    nv = C.shape[0]
+    ghost = nv - 1
+    ids = torch.arange(nv, dtype=torch.int32, device=C.device)
+    if adj is not None:
+        return (adj & (C[:, None] == C[None, :]) & (ids[:, None] < ghost)
+                & (ids[None, :] < ghost))
+    same = (C[src] == C[dst]) & (src < ghost) & (dst < ghost)
+    # edges outside a community land on (ghost, ghost), cleared after
+    A_same = torch.zeros((nv, nv), dtype=torch.bool, device=C.device)
+    A_same[torch.where(same, src, ghost).long(),
+           torch.where(same, dst, ghost).long()] = True
+    A_same[ghost, ghost] = False
+    return A_same
+
+
+def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0,
+                 impl: str = "coo", adj=None):
     """Label every vertex with its (component ∩ community) representative.
 
     Args:
@@ -31,24 +57,36 @@ def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0):
       C: int32[nv] community membership.
       mode: 'lp' | 'lpp' | 'pj'.
       max_iters: 0 = run to the fixpoint, bounded by nv rounds.
+      impl: 'coo' | 'dense' (see the module docstring).
+      adj: the dense impl's bool[nv, nv] edge adjacency, shared by the
+        caller, or ``None`` to assign it from the edges.
 
     Returns:
       (labels int32[nv], rounds as a Python int).  ``labels`` refines ``C``.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     nv = C.shape[0]
     ghost = nv - 1
     limit = max_iters if max_iters > 0 else nv
-    same = (C[src] == C[dst]) & (src < ghost) & (dst < ghost)
+    if impl == "dense":
+        # C is fixed for the whole fixpoint: the masked adjacency is too
+        A_same = _same_community_adjacency(src, dst, C, adj)
+    else:
+        same = (C[src] == C[dst]) & (src < ghost) & (dst < ghost)
     L = torch.arange(nv, dtype=torch.int32, device=C.device)
     active = torch.ones(nv, dtype=torch.bool, device=C.device)
     changed, it = True, 0
     while changed and it < limit:
         # candidate: min label over same-community neighbours, keyed by the
         # sorted src (the symmetric COO makes in- and out-neighbours equal)
-        cand = ops.segreduce_sorted(torch.where(same, L[dst], INT_MAX), src,
-                                    nv, op="min")
+        if impl == "dense":
+            cand = torch.amin(torch.where(A_same, L[None, :], INT_MAX), dim=1)
+        else:
+            cand = ops.segreduce_sorted(torch.where(same, L[dst], INT_MAX),
+                                        src, nv, op="min")
         L_new = torch.minimum(L, cand)
         if mode == "lpp":
             # pruned vertices are not recomputed this round (paper line 8)
@@ -59,8 +97,12 @@ def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0):
         moved = L_new != L
         if mode == "lpp":
             # wake same-community neighbours of changed vertices
-            nbr = ops.segreduce_sorted((moved[dst] & same).to(torch.int32),
-                                       src, nv, op="max") > 0
+            if impl == "dense":
+                nbr = torch.any(A_same & moved[:, None], dim=0)
+            else:
+                nbr = ops.segreduce_sorted(
+                    (moved[dst] & same).to(torch.int32), src, nv,
+                    op="max") > 0
             active = nbr | moved
         changed = bool(moved.any())
         L = L_new

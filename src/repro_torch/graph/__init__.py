@@ -1,5 +1,7 @@
 """Graph substrate: the padded directed-COO container and its generators."""
-from repro_torch.graph.container import Graph, from_coo, from_undirected
+from repro_torch.graph.container import (
+    Graph, from_coo, from_undirected, remap_vertices,
+)
 from repro_torch.graph.generators import (
     bridge_graph,
     grid_graph,
@@ -15,6 +17,7 @@ __all__ = [
     "from_coo",
     "from_undirected",
     "graph_from_arrays",
+    "remap_vertices",
     "sbm_graph",
     "rmat_graph",
     "ring_of_cliques",

@@ -102,8 +102,60 @@ def strip_padding(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
 
 
 def _sort_coo(src: np.ndarray, dst: np.ndarray, w: np.ndarray):
-    order = np.lexsort((dst, src))
+    """Stable sort of the edges by ``(src, dst)``.  Non-negative ids sort
+    as one packed int64 key, whose stable sort is numpy's timsort: the
+    same order as ``np.lexsort((dst, src))``, and near-linear on the
+    already sorted edges of a rewrite."""
+    if src.size and min(src.min(), dst.min()) >= 0:
+        key = (src.astype(np.int64) << 32) | dst.astype(np.int64)
+        order = np.argsort(key, kind="stable")
+    else:
+        order = np.lexsort((dst, src))
     return src[order], dst[order], w[order]
+
+
+def remap_coo(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+              perm: np.ndarray, n_cap: int, m_cap: int):
+    """The host half of :func:`remap_vertices` on padded numpy arrays:
+    ``(src, dst, w)`` relabelled through ``perm``, re-sorted and re-padded
+    to ``m_cap``."""
+    perm = np.asarray(perm, np.int64)
+    live = src < n_cap
+    keep = live & (perm[src] >= 0) & (perm[dst] >= 0)
+    s, d, ww = _sort_coo(perm[src[keep]].astype(np.int32),
+                         perm[dst[keep]].astype(np.int32),
+                         w[keep].astype(np.float32))
+    pad = m_cap - s.shape[0]
+    return (np.concatenate([s, np.full(pad, n_cap, np.int32)]),
+            np.concatenate([d, np.full(pad, n_cap, np.int32)]),
+            np.concatenate([ww, np.zeros(pad, np.float32)]))
+
+
+def remap_vertices(g: Graph, perm: np.ndarray, n_nodes: int) -> Graph:
+    """Vertex remap and compaction (dynamic vertex removals), on the host.
+
+    ``perm`` maps old vertex ids to new ids (``int[nv]``, covering the
+    ghost slot; ``-1`` marks tombstoned ids).  Live edges with a
+    tombstoned endpoint are dropped, the survivors are relabelled through
+    ``perm``, re-sorted to restore the ``(src, dst)`` order invariant, and
+    re-padded to the **same** capacities, so the freed edge slots return
+    to the padding pool as edge deletions do.  The graph is read to the
+    host once; the result lies on ``g``'s device.
+    """
+    perm = np.asarray(perm, np.int64)
+    if perm.shape != (g.nv,):
+        raise ValueError(f"perm must have shape ({g.nv},), got {perm.shape}")
+    if n_nodes > g.n_cap:
+        raise ValueError(f"n_cap={g.n_cap} < n_nodes {n_nodes}")
+    src, dst, w = (t.cpu().numpy() for t in (g.src, g.dst, g.w))
+    s, d, ww = remap_coo(src, dst, w, perm, g.n_cap, g.m_cap)
+    dev = g.device
+    return Graph(src=torch.from_numpy(s).to(dev),
+                 dst=torch.from_numpy(d).to(dev),
+                 w=torch.from_numpy(ww).to(dev),
+                 n_nodes=torch.tensor(int(n_nodes), dtype=torch.int32,
+                                      device=dev),
+                 n_cap=g.n_cap, m_cap=g.m_cap)
 
 
 def from_coo(

@@ -7,7 +7,8 @@ segment-reduce kernel is held against its plain version (f32 sums against
 the plain version on a CPU copy, since CUDA's ``index_add_`` folds in no
 fixed order), and ``detect()`` on the card against ``detect()`` on the CPU,
 exactly, for every tier and split policy (and the modularity that decides
-max-quality's pick, bit for bit).  The kernels of the kernel API are held
+max-quality's pick, bit for bit), with either scan, and
+``update_communities`` on the card against the CPU and across scans.  The kernels of the kernel API are held
 against their plain versions within stated bounds: float32 rounding bounds
 against float64 for the sums, the reference's own tolerances for spmm and
 float32 attention, and the output's bf16 rounding (``chip_smoke.py`` phase
@@ -19,8 +20,9 @@ import pytest
 import torch
 from _torch_layouts import INORDER_LAYOUTS, TILED_LAYOUTS, tiled_layout
 
-from repro_torch.core import (DetectOptions, LouvainConfig, detect,
-                               louvain_staged, modularity)
+from repro_torch.core import (DetectOptions, GraphUpdate, LouvainConfig,
+                               detect, louvain_staged, modularity,
+                               update_communities)
 from repro_torch.core.louvain import SPLITS
 from repro_torch.graph import rmat_graph, sbm_graph
 from repro_torch.graph.container import strip_padding
@@ -280,6 +282,72 @@ def test_modularity_card_equals_cpu(cuda, graph):
         q_cpu = modularity(*live, C)
         q_card = modularity(*(t.to(cuda) for t in live), C.to(cuda)).cpu()
         assert torch.equal(q_card.view(torch.int32), q_cpu.view(torch.int32))
+
+
+@pytest.mark.parametrize("algorithm,split", TIER_RUNS,
+                         ids=[f"{a}-{s}" for a, s in TIER_RUNS])
+def test_dense_scan_card_equals_cpu_and_sort(cuda, algorithm, split):
+    """``scan='dense'`` on the card gives the CPU's dense result and the
+    card's sortscan result, labels, stats and Q bits."""
+    make = SMALL_GRAPHS["sbm512"]
+
+    def run(scan, device):
+        return detect(make(device), device=device, options=DetectOptions(
+            algorithm=algorithm, scan=scan,
+            louvain=LouvainConfig(split=split)))
+
+    dense, on_cpu, sort = run("dense", cuda), run("dense", "cpu"), \
+        run("sort", cuda)
+    for other in (on_cpu, sort):
+        assert torch.equal(dense.labels.cpu(), other.labels.cpu())
+        assert dense.stats == other.stats
+        assert dense.n_disconnected == other.n_disconnected
+        assert dense.modularity == other.modularity
+
+
+def _churn_update(g_cpu, seed):
+    """A seeded batch: 4 removals, 2 additions wired to survivors, 8
+    deletions of surviving edges and 8 insertions (ids after the rewrite)."""
+    rng = np.random.default_rng(seed)
+    n = int(g_cpu.n_nodes)
+    src, dst, w = g_cpu.src.numpy(), g_cpu.dst.numpy(), g_cpu.w.numpy()
+    rem = np.sort(rng.choice(n, 4, replace=False))
+    perm = np.full(g_cpu.nv, -1)
+    keep = np.setdiff1d(np.arange(n), rem)
+    perm[keep] = np.arange(keep.size)
+    ok = (src < g_cpu.n_cap) & (src < dst) & (perm[src] >= 0) & \
+        (perm[dst] >= 0)
+    idx = rng.choice(np.flatnonzero(ok), 8, replace=False)
+    n2 = keep.size + 2
+    u = np.concatenate([perm[src[idx]], [n2 - 2, n2 - 1],
+                        rng.integers(0, n2 - 2, 8)])
+    v = np.concatenate([perm[dst[idx]], rng.integers(0, n2 - 2, 2),
+                        rng.integers(0, n2 - 2, 8)])
+    dw = np.concatenate([-w[idx], np.ones(10)]).astype(np.float32)
+    return GraphUpdate(u=u, v=v, dw=dw, add=2, remove=rem)
+
+
+@pytest.mark.parametrize("scan", ["sort", "dense"])
+@pytest.mark.parametrize("graph", sorted(SMALL_GRAPHS))
+def test_update_communities_card_equals_cpu(cuda, graph, scan):
+    """One churn batch: card and CPU, and either scan, give the same graph,
+    labels and stats (Q bits included), with no disconnected community."""
+    g_card, g_cpu = SMALL_GRAPHS[graph](cuda), SMALL_GRAPHS[graph]("cpu")
+    labels = detect(g_cpu, device="cpu").labels
+    upd = _churn_update(g_cpu, 3)
+    before = segreduce_sorted_cuda.launches
+    gc, Cc, sc = update_communities(g_card, labels.to(cuda), upd, scan=scan)
+    assert segreduce_sorted_cuda.launches > before
+    gh, Ch, sh = update_communities(g_cpu, labels, upd, scan=scan,
+                                    device="cpu")
+    gs, Cs, ss = update_communities(g_card, labels.to(cuda), upd,
+                                    scan="sort")
+    for name in ("src", "dst", "w", "n_nodes"):
+        assert torch.equal(getattr(gc, name).cpu(), getattr(gh, name))
+        assert torch.equal(getattr(gc, name), getattr(gs, name))
+    assert torch.equal(Cc.cpu(), Ch) and torch.equal(Cc, Cs)
+    assert sc == sh == ss
+    assert sc["n_disconnected"] == 0 and sc["n_removed"] == 4
 
 
 # --- the kernel API: cumsum, segsum, spmm, flash attention --------------------

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 import repro.core as jcore
 import repro.graph as rg
 import repro_torch.core as tcore
@@ -230,11 +231,16 @@ def test_louvain_split_modes_equal(split):
 
 
 def test_unported_options_raise():
-    """Only the dense scan is left to port; every tier and split policy
-    runs, and unknown names raise ValueError."""
+    """Every option of the reference's detect() that the port has runs:
+    the dense scan gives the sort scan's result, every tier and split
+    policy runs, and unknown names raise ValueError."""
     g = _port(GRAPHS["grid"]())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcore.DetectOptions(scan="dense")
+    dense, sort = (tcore.detect(g, options=tcore.DetectOptions(scan=scan),
+                                device="cpu") for scan in ("dense", "sort"))
+    assert torch.equal(dense.labels, sort.labels)
+    assert dense.stats == sort.stats and dense.modularity == sort.modularity
+    with pytest.raises(ValueError):
+        tcore.DetectOptions(scan="hash")
     with pytest.raises(ValueError):
         tcore.DetectOptions(algorithm="best")
     with pytest.raises(ValueError):
@@ -284,8 +290,10 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.core.lpa' in names, names\n"
-        "assert len(names) >= 16, names\n"
+        "for n in ('lpa', 'dynamic'):\n"
+        "    assert 'repro_torch.core.' + n in names, names\n"
+        "assert 'repro_torch.service.buckets' in names, names\n"
+        "assert len(names) >= 19, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

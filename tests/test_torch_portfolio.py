@@ -17,6 +17,7 @@ C.7), so the standard and max-quality tiers keep zero disconnected.
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_detect import GRAPHS, Q_ATOL, _eq, _port, _t
 
 import repro.core as jcore

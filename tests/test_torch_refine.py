@@ -11,6 +11,7 @@ port leaves the same ones (``REFERENCE_SPLIT_PARTS``).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_detect import GRAPHS, _eq, _port, _t
 
 import repro.core as jcore

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.kernels import ops as jops
 from repro_torch.kernels import ref
 from repro_torch.kernels import onehot_segsum as oh

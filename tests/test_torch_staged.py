@@ -6,6 +6,7 @@ test in float64 on the host, where ``louvain_impl`` uses float32; the
 port mirrors each.
 """
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_detect import GRAPHS, _eq, _port
 
 import repro.core as jcore
