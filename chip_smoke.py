@@ -84,11 +84,33 @@ result line):
    the flash entry counts launches by route.  Then the median time of
    each case, its bound, the plain version's time and one PyTorch call's.
 
+6. The batched engine and the result store, on the card
+   (``repro_torch.service``): 32 graphs of phase 3's family,
+   ``sbm_graph(1024, 16, 0.2, 0.003, seed=s, n_cap=1024, m_cap=16384)``
+   for the first 32 seeds from 3 that fit the largest default bucket
+   ``Bucket(1024, 16384)`` (3..35 but 11),
+   and 32 ego-nets, ``sbm_graph(56, 4, 0.7, 0.08, seed=s)`` for s = 0..31
+   admitted into ``Bucket(64, 2048)`` (the reference's service workload,
+   at its batch of 32).  ``engine.warm(bucket)`` (one filler graph a
+   tier), then ``detect_batch`` of the 32 graphs with each tier; every
+   result must equal ``detect()`` of the same graph on the card (labels,
+   ``n_communities``, ``n_disconnected``, ``fraction``, the stats and Q's
+   bits) and launch the segment reduce as often as the loop of
+   ``detect()`` does, with 0 disconnected for standard and max-quality.  Each batch prints its wall
+   time, graphs/s, the same 32 graphs through a loop of ``detect()`` and
+   the ratio of the two, segment-reduce launches and sweeps (one host
+   sync each) a batch and wall ms a sweep.  Then, on the large bucket, 32
+   churn items (phase 3's 16 removals, 8 additions, 64 deletions, 32
+   insertions) prepared by ``ResultStore.prepare_update`` from the
+   standard labels go through ``update_batch``, and must equal, bit for
+   bit, 32 immediate ``ResultStore.apply_update`` calls on a second store.
+
 ``--profile`` adds a traced run of phase 4's ``detect()`` of each tier
 (device time by kernel, the device's busy share, and each segment-reduce
-kernel's total) and, in phase
+kernel's total), in phase
 5, three traced calls of each ``segsum``, ``cumsum`` and ``spmm`` case
-(device time a call by kernel).  The second-to-last lines are
+(device time a call by kernel), and in phase 6 one traced standard batch
+of each bucket (CUDA kernel launches and the device's busy share).  The second-to-last lines are
 one JSON object for the kernels (``kernels``) and the card line; the last
 line is the result object.
 """
@@ -1259,6 +1281,169 @@ def profile_phase(g, algorithm="standard"):
         log(f"  {name[:100]}: {us / 1e3} ms device, {n} launches")
 
 
+ENGINE_BATCH = 32     # the reference service's batch (bench_service.py)
+
+
+def engine_families():
+    """Phase 6's two workloads: (name, bucket, graphs on the card)."""
+    from repro_torch.graph import sbm_graph
+    from repro_torch.service import Bucket
+    from repro_torch.service.buckets import admit
+
+    big, ego = Bucket(1024, 16384), Bucket(64, 2048)
+    dense, skipped, seed = [], [], 3
+    while len(dense) < ENGINE_BATCH:
+        try:
+            dense.append(sbm_graph(1024, 16, 0.2, 0.003, seed=seed,
+                                   n_cap=1024, m_cap=16384,
+                                   device="cuda")[0])
+        except ValueError:      # more directed edges than m_cap
+            skipped.append(seed)
+        seed += 1
+    egos = [admit(sbm_graph(56, 4, 0.7, 0.08, seed=s, device="cuda")[0],
+                  [ego])[0] for s in range(ENGINE_BATCH)]
+    return [(f"sbm_graph(1024, 16, 0.2, 0.003, seed=3..{seed - 1} but "
+             f"{skipped}) in Bucket(1024, 16384)", big, dense),
+            ("ego-nets sbm_graph(56, 4, 0.7, 0.08, seed=0..31) in "
+             "Bucket(64, 2048)", ego, egos)]
+
+
+def same_as_detect(r, d) -> bool:
+    """An engine result against ``detect()`` of the same graph: labels,
+    counts, stats and Q's bits."""
+    import numpy as np
+
+    st = d.stats
+    return (np.array_equal(r.C, d.labels.cpu().numpy())
+            and (r.n_communities, r.n_disconnected, r.passes, r.sweeps,
+                 r.split_moved) == (d.n_communities, d.n_disconnected,
+                                    st["passes"], st["li_total"],
+                                    st["split_moved"])
+            and r.fraction == d.fraction and r.q == d.modularity)
+
+
+def traced_batch(engine, graphs, algorithm):
+    """One traced batch: CUDA kernel launches (runtime launch calls) and
+    the device's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        engine.detect_batch(graphs, algorithm=algorithm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall, launches, busy_us / 1e6
+
+
+def engine_phase(profile=False) -> dict:
+    """Phase 6: the batched engine and the result store on the card.
+    Returns the segment-reduce launches by path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DetectOptions, detect
+    from repro_torch.core.portfolio import ALGORITHMS
+    from repro_torch.service import BatchedLouvainEngine, ResultStore
+
+    engine = BatchedLouvainEngine(algorithms=ALGORITHMS)
+    launches = {}
+    standard = {}
+    for name, bucket, graphs in engine_families():
+        n = len(graphs)
+        log(f"  {name}: scan={engine.scan_for(bucket)}")
+        t0 = time.perf_counter()
+        n_warm = engine.warm(bucket)
+        torch.cuda.synchronize()
+        log(f"    warm(bucket): {n_warm} filler graphs in "
+            f"{time.perf_counter() - t0} s  keys={len(engine.cache_keys())}")
+        for alg in ("standard", "max-quality", "fast"):
+            res, wall, n_seg, peak = timed_path(
+                lambda: engine.detect_batch(graphs, algorithm=alg))
+            hit = engine.last_detect_info.compile_hit
+            opts = DetectOptions(algorithm=alg)
+            dets, wall_loop, n_loop, _ = timed_path(
+                lambda: [detect(g, options=opts) for g in graphs])
+            equal = all(same_as_detect(r, d) for r, d in zip(res, dets))
+            sweeps = sum(r.sweeps for r in res)
+            n_disc = sum(r.n_disconnected for r in res)
+            log(f"    detect_batch {alg}: equal to detect() (labels, counts, "
+                f"stats, Q bits)={equal}  key hit={hit}  batch wall={wall} s "
+                f"({n / wall} graphs/s)  loop of detect()={wall_loop} s  "
+                f"loop/batch={wall_loop / wall}  segreduce launches a batch="
+                f"{n_seg} (loop {n_loop})  sweeps (host syncs) a batch="
+                f"{sweeps}  wall ms a sweep={1e3 * wall / max(sweeps, 1)}  "
+                f"disconnected={n_disc}  peak device memory={peak:.3f} GiB")
+            if not equal or not hit or n_seg != n_loop:
+                raise AssertionError(f"engine {alg} on {name}: equal={equal}"
+                                     f" key hit={hit} segreduce launches "
+                                     f"{n_seg} against detect()'s {n_loop}")
+            if alg != "fast" and n_disc:
+                raise AssertionError(f"engine {alg}: {n_disc} disconnected")
+            launches[f"engine detect_batch {alg}, {name}"] = n_seg
+            if alg == "standard":
+                standard[name] = res
+        if profile:
+            wall, n_launch, busy = traced_batch(engine, graphs, "standard")
+            sweeps = sum(r.sweeps for r in standard[name])
+            log(f"    traced detect_batch standard: wall={wall} s  CUDA "
+                f"kernel launches={n_launch} ({n_launch / max(sweeps, 1)} a "
+                f"sweep)  device busy={busy} s ({100 * busy / wall} %)")
+
+    # the warm updates: 32 churn items on the large bucket, batched through
+    # the engine against 32 immediate updates on a second store
+    name, bucket, graphs = engine_families()[0]
+    batched, immediate = ResultStore(), ResultStore()
+    ids = [f"g{i}" for i in range(len(graphs))]
+    for gid, g, r in zip(ids, graphs, standard[name]):
+        for store in (batched, immediate):
+            store.put(gid, g, r.C, n_communities=r.n_communities,
+                      n_disconnected=r.n_disconnected, q=r.q)
+    upds = [churn_batch(g, seed=100 + i, remove=16, add=8, delete=64,
+                        insert=32)[0] for i, g in enumerate(graphs)]
+    t0 = time.perf_counter()
+    plans = [batched.prepare_update(gid, u) for gid, u in zip(ids, upds)]
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    items = [(p.graph, p.C_prev, p.touched) for p in plans]
+    res, wall, n_seg, peak = timed_path(lambda: engine.update_batch(items))
+    for p, r in zip(plans, res):
+        batched.commit_update(p, C=r.C, n_communities=r.n_communities,
+                              n_disconnected=r.n_disconnected, q=r.q)
+    _, wall_imm, n_imm, _ = timed_path(lambda: [
+        immediate.apply_update(gid, u) for gid, u in zip(ids, upds)])
+    equal = True
+    for gid in ids:
+        a, b = batched.get(gid), immediate.get(gid)
+        equal &= (np.array_equal(a.C, b.C) and a.q == b.q
+                  and (a.version, a.n_communities, a.n_disconnected)
+                  == (b.version, b.n_communities, b.n_disconnected)
+                  and all(torch.equal(getattr(a.graph, k),
+                                      getattr(b.graph, k))
+                          for k in ("src", "dst", "w", "n_nodes")))
+    sweeps = sum(r.iterations for r in res)
+    n_disc = sum(r.n_disconnected for r in res)
+    log(f"  update_batch, {name}: equal to immediate apply_update (graph, "
+        f"labels, counts, Q bits)={equal}  host prepare={t_prep} s  batch "
+        f"wall={wall} s ({len(res) / wall} graphs/s)  immediate (prepare "
+        f"included)={wall_imm} s  segreduce launches a batch={n_seg} "
+        f"(immediate {n_imm})  sweeps a batch={sweeps}  wall ms a sweep="
+        f"{1e3 * wall / max(sweeps, 1)}  affected="
+        f"{sum(r.n_affected for r in res)}  disconnected={n_disc}")
+    if not equal or n_disc:
+        raise AssertionError(f"update_batch: equal={equal}, {n_disc} "
+                             "disconnected")
+    launches[f"engine update_batch, {name}"] = n_seg
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=21,
@@ -1267,7 +1452,7 @@ def main(argv=None) -> int:
                     help="after phase 4, run detect() once more under "
                     "torch.profiler and print device time by kernel; trace "
                     "calls of each segsum, cumsum and spmm case of phase 5 "
-                    "too")
+                    "and one engine batch a bucket of phase 6 too")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1349,6 +1534,9 @@ def main(argv=None) -> int:
 
     log("phase 5: the kernel API vs plain, on the card")
     api_entries = api_phase(g, res.labels, profile=args.profile)
+
+    log("phase 6: the batched engine and the store, on the card")
+    by_path.update(engine_phase(profile=args.profile))
 
     entry["launches"] = launches
     entry["launches_by_path"] = by_path

@@ -157,4 +157,5 @@ def run_detection(graph, options, *, phase_seconds=None):
         modularity=q,
         stats=stats,
         contract=contract_for(options.algorithm),
+        fraction=float(det["fraction"]),
     )

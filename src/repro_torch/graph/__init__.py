@@ -1,6 +1,6 @@
 """Graph substrate: the padded directed-COO container and its generators."""
 from repro_torch.graph.container import (
-    Graph, from_coo, from_undirected, remap_vertices,
+    Graph, from_coo, from_undirected, remap_vertices, repad, unit_graph,
 )
 from repro_torch.graph.generators import (
     bridge_graph,
@@ -18,6 +18,8 @@ __all__ = [
     "from_undirected",
     "graph_from_arrays",
     "remap_vertices",
+    "repad",
+    "unit_graph",
     "sbm_graph",
     "rmat_graph",
     "ring_of_cliques",

@@ -114,6 +114,35 @@ def _sort_coo(src: np.ndarray, dst: np.ndarray, w: np.ndarray):
     return src[order], dst[order], w[order]
 
 
+def repad(g: Graph, n_cap: int, m_cap: int) -> Graph:
+    """Re-pad a graph into new capacities (bucket admission), on the host.
+
+    The live edges are read to the host once and laid out against the new
+    ghost index by :func:`from_coo`; the result lies on ``g``'s device.
+    Raises ``ValueError`` if the graph does not fit.
+    """
+    n = int(g.n_nodes)
+    src, dst, w = (t.cpu().numpy() for t in (g.src, g.dst, g.w))
+    mask = src < g.n_cap
+    if n > n_cap:
+        raise ValueError(f"n_cap={n_cap} < n_nodes {n}")
+    if int(mask.sum()) > m_cap:
+        raise ValueError(f"m_cap={m_cap} < num edges {int(mask.sum())}")
+    return from_coo(n, src[mask], dst[mask], w[mask], n_cap=n_cap,
+                    m_cap=m_cap, device=g.device)
+
+
+def unit_graph(n_cap: int, m_cap: int, *, device=None) -> Graph:
+    """A 1-vertex graph with a unit self-loop: the batch filler.
+
+    Keeps ``2m > 0`` so a filler never divides by zero in modularity;
+    callers discard its results.  ``device`` as in :func:`from_coo`.
+    """
+    return from_coo(1, np.array([0]), np.array([0]),
+                    np.array([1.0], np.float32), n_cap=n_cap, m_cap=m_cap,
+                    device=device)
+
+
 def remap_coo(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
               perm: np.ndarray, n_cap: int, m_cap: int):
     """The host half of :func:`remap_vertices` on padded numpy arrays:

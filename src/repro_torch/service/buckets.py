@@ -1,6 +1,5 @@
-"""Size buckets and the dense-vs-sortscan crossover (port of
-``repro/service/buckets.py``; the bucket admission itself, ``admit``,
-``live_edges`` and the filler graphs, comes with the batched engine).
+"""Size buckets, bucket admission and the dense-vs-sortscan crossover
+(port of ``repro/service/buckets.py``).
 
 Buckets are the static ``(n_cap, m_cap)`` capacities the service pads its
 graphs to; the default ladder grows by about 4x a rung and offers two edge
@@ -20,6 +19,8 @@ import functools
 import json
 import pathlib
 from typing import Optional, Sequence
+
+from repro_torch.graph.container import Graph, repad, unit_graph
 
 # the reference's CPU-tuned fallback when no calibration is on file
 DEFAULT_DENSE_MIN_DENSITY = 0.02
@@ -95,3 +96,31 @@ def choose_scan(nv: int, m_cap: int, *, dense_max_nv: int = 1025,
     if nv <= dense_small_nv:
         return "dense"
     return "dense" if m_cap >= dense_min_density * (nv * nv) else "sort"
+
+
+def admit(g: Graph, buckets: Sequence[Bucket] = DEFAULT_BUCKETS
+          ) -> tuple[Graph, Bucket]:
+    """Re-pad a request graph into its bucket, on the graph's device.
+    Returns (padded, bucket)."""
+    m = live_edges(g)
+    b = choose_bucket(int(g.n_nodes), m, buckets)
+    if (g.n_cap, g.m_cap) == (b.n_cap, b.m_cap):
+        return g, b
+    return repad(g, b.n_cap, b.m_cap), b
+
+
+def live_edges(g: Graph) -> int:
+    """Directed live-edge count.  The compare runs where the edge array
+    lies: on a CUDA graph it is one device-to-host sum a request (the
+    reference reads the array on the host)."""
+    return int((g.src < g.n_cap).sum())
+
+
+def filler(bucket: Bucket, *, device=None) -> Graph:
+    """Bucket-shaped filler graph (:func:`unit_graph`) on ``device``
+    (``None`` = CUDA; raises when CUDA is absent)."""
+    return unit_graph(bucket.n_cap, bucket.m_cap, device=device)
+
+
+def bucket_of(g: Graph) -> Bucket:
+    return Bucket(g.n_cap, g.m_cap)

@@ -8,7 +8,9 @@ the plain version on a CPU copy, since CUDA's ``index_add_`` folds in no
 fixed order), and ``detect()`` on the card against ``detect()`` on the CPU,
 exactly, for every tier and split policy (and the modularity that decides
 max-quality's pick, bit for bit), with either scan, and
-``update_communities`` on the card against the CPU and across scans.  The kernels of the kernel API are held
+``update_communities`` on the card against the CPU and across scans, and
+the batched engine's detect batches (one a default bucket) and update
+batch on the card against the CPU.  The kernels of the kernel API are held
 against their plain versions within stated bounds: float32 rounding bounds
 against float64 for the sums, the reference's own tolerances for spmm and
 float32 attention, and the output's bf16 rounding (``chip_smoke.py`` phase
@@ -740,3 +742,80 @@ def test_flash_cuda_core_route(cuda, dtype, dh):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     else:
         _assert_output_rounding_bound(got, q, k, v, True, None)
+
+
+# ---------------------------------------------------------------------------
+# the batched engine and the store's batched warm updates, card vs CPU
+# ---------------------------------------------------------------------------
+
+ENGINE_GRAPHS = {   # one small family a default bucket, three seeds each
+    (64, 512): lambda s: sbm_graph(30, 3, 0.4, 0.04, seed=s,
+                                   device="cpu")[0],
+    (64, 2048): lambda s: sbm_graph(56, 4, 0.7, 0.08, seed=s,
+                                    device="cpu")[0],
+    (256, 2048): lambda s: sbm_graph(100, 4, 0.2, 0.02, seed=s,
+                                     device="cpu")[0],
+    (256, 8192): lambda s: sbm_graph(200, 4, 0.3, 0.02, seed=s,
+                                     device="cpu")[0],
+    (1024, 16384): lambda s: sbm_graph(1024, 16, 0.2, 0.003, seed=s + 3,
+                                       device="cpu")[0],
+}
+
+
+def _engine_batch(bucket):
+    from repro_torch.service import Bucket
+    from repro_torch.service.buckets import admit
+
+    b = Bucket(*bucket)
+    graphs = []
+    for s in range(3):
+        g, got = admit(ENGINE_GRAPHS[bucket](s))
+        assert got == b, (bucket, got)
+        graphs.append(g)
+    return graphs
+
+
+@pytest.mark.parametrize("bucket", list(ENGINE_GRAPHS))
+def test_engine_card_equals_cpu(cuda, bucket):
+    from repro_torch.service import BatchedLouvainEngine
+
+    graphs = _engine_batch(bucket)
+    on_cpu = BatchedLouvainEngine(device="cpu").detect_batch(graphs)
+    on_card = BatchedLouvainEngine().detect_batch(
+        [g.to(cuda) for g in graphs])
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(a.C, b.C)
+        assert (a.n_communities, a.n_disconnected, a.fraction, a.passes,
+                a.sweeps, a.split_moved, a.q) == (
+            b.n_communities, b.n_disconnected, b.fraction, b.passes,
+            b.sweeps, b.split_moved, b.q)
+        assert a.n_disconnected == 0
+
+
+def test_update_batch_card_equals_cpu(cuda):
+    from repro_torch.service import BatchedLouvainEngine, ResultStore
+
+    graphs = _engine_batch((1024, 16384))
+    cpu = BatchedLouvainEngine(device="cpu")
+    store = ResultStore(device="cpu")
+    items = []
+    for i, (g, r) in enumerate(zip(graphs, cpu.detect_batch(graphs))):
+        store.put(f"g{i}", g, r.C, n_communities=r.n_communities,
+                  n_disconnected=r.n_disconnected, q=r.q)
+        rng = np.random.default_rng(i)
+        n = int(g.n_nodes)
+        upd = GraphUpdate(u=rng.integers(0, n - 4, 24),
+                          v=rng.integers(0, n - 4, 24),
+                          dw=np.ones(24, np.float32), add=2,
+                          remove=[5 + i, 300 + i])
+        p = store.prepare_update(f"g{i}", upd)
+        items.append((p.graph, p.C_prev, p.touched))
+    want = cpu.update_batch(items)
+    got = BatchedLouvainEngine().update_batch(items)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.C, b.C)
+        assert (a.n_communities, a.n_disconnected, a.fraction, a.iterations,
+                a.n_affected, a.split_moved, a.q) == (
+            b.n_communities, b.n_disconnected, b.fraction, b.iterations,
+            b.n_affected, b.split_moved, b.q)
+        assert a.n_disconnected == 0

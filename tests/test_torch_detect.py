@@ -292,8 +292,11 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "for n in ('lpa', 'dynamic'):\n"
         "    assert 'repro_torch.core.' + n in names, names\n"
-        "assert 'repro_torch.service.buckets' in names, names\n"
-        "assert len(names) >= 19, names\n"
+        "for n in ('buckets', 'engine', 'store', 'admission', 'metrics'):\n"
+        "    assert 'repro_torch.service.' + n in names, names\n"
+        "for n in ('histogram', 'spans', 'sinks', 'prometheus'):\n"
+        "    assert 'repro_torch.telemetry.' + n in names, names\n"
+        "assert len(names) >= 30, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
