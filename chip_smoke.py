@@ -105,6 +105,27 @@ result line):
    standard labels go through ``update_batch``, and must equal, bit for
    bit, 32 immediate ``ResultStore.apply_update`` calls on a second store.
 
+7. The timeline, the checkpoint and the degraded tier, on the card
+   (``repro_torch.timeline``, ``checkpoint``, ``resilience``).  At full
+   size, on phase 4's graph: a ``ResultStore`` on the card with a
+   ``TimelineManager`` as its commit hook; ``put`` of phase 4's standard
+   detection (the first snapshot: a birth a community, 4,096 resident
+   timelines), then ``apply_update`` of phase 4's batch, whose labels,
+   community count and Q bits must equal phase 4's warm update, with 0
+   disconnected and no id-map reset or binding mismatch (host prepare,
+   warm update and hook timed apart); a service checkpoint saved and
+   restored into a fresh store and manager, the entry bit for bit, equal
+   ``state()`` and equal ``membership_at`` for 10,000 seeded externals
+   (the directory is deleted after); ``lpa_result`` equal to phase 4's
+   fast tier.  On the dense-scan family, card and CPU side by side: a
+   checkpoint round trip after which one churn update gives the same bits
+   on the original and the restored entry; an ``engine.detect`` fault on
+   phase 6's engine retried to the clean batch; the ``engine.detect.hang``
+   seam tripping ``call_with_timeout``; a breaker on an injected clock
+   that opens, sheds to the degraded tier, half-opens and closes; and an
+   ``AutoCheckpointer`` whose newest snapshot the ``checkpoint.io`` seam
+   tears, recovered from the one before.
+
 ``--profile`` adds a traced run of phase 4's ``detect()`` of each tier
 (device time by kernel, the device's busy share, and each segment-reduce
 kernel's total), in phase
@@ -900,13 +921,13 @@ DENSE_GRAPH = ("sbm_graph(1024, 16, 0.2, 0.003, seed=3, n_cap=1024, "
 CHURN_GRAPH = "sbm_graph(2048, 24, 0.12, 0.002, seed=2)"
 
 
-def dense_graph(device):
+def dense_graph(device, seed=3):
     """The dense scan's full-width graph: ``nv = 1025`` (``dense_max_nv``)
     in the largest default service bucket, ``Bucket(1024, 16384)``."""
     from repro_torch.graph import sbm_graph
 
-    return sbm_graph(1024, 16, 0.2, 0.003, seed=3, n_cap=1024, m_cap=16384,
-                     device=device)[0]
+    return sbm_graph(1024, 16, 0.2, 0.003, seed=seed, n_cap=1024,
+                     m_cap=16384, device=device)[0]
 
 
 def churn_graph(device):
@@ -1084,12 +1105,13 @@ def dynamic_small_phase() -> int:
     return dense_launches
 
 
-def dynamic_phase(g, labels) -> int:
+def dynamic_phase(g, labels) -> tuple[int, object, dict]:
     """Phase 4, one update batch at full size from the standard tier's
     labels: 1,024 vertices removed, 1,024 added (each wired to 2), 32,768
     undirected edges deleted and 16,384 inserted.  The host folds apart
     from the warm update on the card, which runs twice on the same inputs
-    and must give the same bits.  Returns the warm update's launches."""
+    and must give the same bits.  Returns the warm update's launches, the
+    batch and the warm update's output (phase 7 holds the store to it)."""
     import torch
 
     from repro_torch.core.dynamic import prepare_graph_update, warm_update
@@ -1125,7 +1147,7 @@ def dynamic_phase(g, labels) -> int:
         raise AssertionError(f"update: modularity {out['q']} not in (0, 1)")
     if not same:
         raise AssertionError("a second warm_update gave other bits")
-    return n
+    return n, upd, out
 
 
 def timed_path(fn):
@@ -1157,11 +1179,12 @@ def same_bits(a, b) -> bool:
     return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
 
 
-def tiers_phase(g, standard) -> dict:
+def tiers_phase(g, standard) -> tuple[dict, object]:
     """Phase 4, the other paths at full size: ``detect()`` with
     'max-quality' and with 'fast', and ``louvain_staged``; each run alone
     with the launch count set to 0 just before.  ``standard`` is phase 4's
-    default ``detect()``.  Returns the launches by path."""
+    default ``detect()``.  Returns the launches by path and the fast
+    tier's ``Detection`` (phase 7 holds the degraded tier to it)."""
     import torch
 
     from repro_torch.core import (DetectOptions, LouvainConfig, detect,
@@ -1192,6 +1215,7 @@ def tiers_phase(g, standard) -> dict:
         if not 0.0 < res.modularity < 1.0 and algorithm != "fast":
             raise AssertionError(f"{algorithm}: modularity {res.modularity}")
         if algorithm == "fast":
+            fast = res
             continue
         if res.n_disconnected != 0:
             raise AssertionError(f"max-quality: {res.n_disconnected} "
@@ -1249,7 +1273,7 @@ def tiers_phase(g, standard) -> dict:
     if not equal:
         raise AssertionError("louvain_staged's labels differ from detect()'s "
                              "(float64 tau: see ROADMAP queue C)")
-    return launches
+    return launches, fast
 
 
 def profile_phase(g, algorithm="standard"):
@@ -1343,9 +1367,9 @@ def traced_batch(engine, graphs, algorithm):
     return wall, launches, busy_us / 1e6
 
 
-def engine_phase(profile=False) -> dict:
+def engine_phase(profile=False) -> tuple[dict, object]:
     """Phase 6: the batched engine and the result store on the card.
-    Returns the segment-reduce launches by path."""
+    Returns the segment-reduce launches by path and the engine."""
     import numpy as np
     import torch
 
@@ -1441,6 +1465,349 @@ def engine_phase(profile=False) -> dict:
         raise AssertionError(f"update_batch: equal={equal}, {n_disc} "
                              "disconnected")
     launches[f"engine update_batch, {name}"] = n_seg
+    return launches, engine
+
+
+CHECKPOINTS = ROOT / "build" / "chip_smoke_checkpoints"   # ignored by git
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def same_state(a, b) -> bool:
+    """Two timeline managers' ``state()``: the same meta and the same
+    arrays (dtype and bits)."""
+    import numpy as np
+
+    (aa, am), (ba, bm) = a.state(), b.state()
+    return am == bm and list(aa) == list(ba) and all(
+        aa[k].dtype == ba[k].dtype and np.array_equal(aa[k], ba[k])
+        for k in aa)
+
+
+def same_entry(a, b) -> bool:
+    """Two store entries: graph arrays, labels, tombstones, version,
+    counts and Q bits equal."""
+    import numpy as np
+    import torch
+
+    return (all(torch.equal(getattr(a.graph, k).cpu(),
+                            getattr(b.graph, k).cpu())
+                for k in ("src", "dst", "w", "n_nodes"))
+            and np.array_equal(a.C, b.C)
+            and np.array_equal(a.deferred, b.deferred)
+            and (a.version, a.n_communities, a.n_disconnected, a.q)
+            == (b.version, b.n_communities, b.n_disconnected, b.q))
+
+
+def timeline_phase(g, standard, fast, churn, warm, scale) -> dict:
+    """Phase 7 at full size, on phase 4's graph: a store on the card with a
+    timeline manager on its commit hook; the standard detection put (the
+    first snapshot), then phase 4's update batch through ``apply_update``,
+    held to phase 4's warm update; a service checkpoint saved and restored
+    into a fresh store and manager, bit for bit; and the degraded tier's
+    ``lpa_result``, held to phase 4's fast tier.  Returns the launches by
+    path."""
+    import collections
+    import shutil
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from repro_torch.core.portfolio import contract_for
+    from repro_torch.resilience import lpa_result
+    from repro_torch.service import ResultStore
+    from repro_torch.telemetry.spans import RequestTrace
+    from repro_torch.timeline import (TimelineConfig, TimelineManager,
+                                      restore_service_checkpoint,
+                                      save_service_checkpoint)
+
+    gid = f"rmat{scale}"
+    tl = TimelineManager(TimelineConfig())
+    kinds = collections.Counter()
+    tl.subscribe(lambda evs: kinds.update(e.kind for e in evs))
+    hook_s = []
+
+    def hook(graph_id, entry, plan):
+        t0 = time.perf_counter()
+        tl.observe_commit(graph_id, entry, plan)
+        hook_s.append(time.perf_counter() - t0)
+
+    store = ResultStore(on_commit=hook)
+    holder = SimpleNamespace(store=store, timelines=tl)
+    t0 = time.perf_counter()
+    store.put(gid, g, standard.labels, n_communities=standard.n_communities,
+              n_disconnected=standard.n_disconnected, q=standard.modularity)
+    t_put = time.perf_counter() - t0
+    resident = len(tl.communities())
+    log(f"  put + first snapshot: {t_put} s (hook {hook_s[-1]} s)  events="
+        f"{dict(kinds)}  resident timelines={resident}  "
+        f"n_truncated_communities={tl.store.n_truncated_communities}")
+    if store.n_commit_hook_errors:
+        raise AssertionError(f"commit hook failed: {store.last_hook_error}")
+    if dict(kinds) != {"birth": standard.n_communities} or resident != min(
+            standard.n_communities, tl.config.max_communities):
+        raise AssertionError("first snapshot: a birth a community expected")
+
+    kinds.clear()
+    trace = RequestTrace("update", kind="update")
+    entry, wall, n_update, peak = timed_path(
+        lambda: store.apply_update(gid, churn, trace=trace))
+    d = trace.durations()
+    same = (np.array_equal(entry.C, warm["C"].cpu().numpy())
+            and entry.n_communities == warm["n_communities"]
+            and entry.q == warm["q"])
+    log(f"  apply_update (phase 4's batch): wall={wall} s  host prepare="
+        f"{d['repad']} s  warm update={d['compile'] + d['engine-dispatch']} "
+        f"s  device sync={d['device-sync']} s  commit={d['store-commit']} s "
+        f"(hook {hook_s[-1]} s)  segreduce launches={n_update}  peak device "
+        f"memory={peak:.2f} GiB  == phase 4's warm update (labels, "
+        f"communities, Q bits)={same}  communities={entry.n_communities}  "
+        f"disconnected={entry.n_disconnected}  events={dict(kinds)}  "
+        f"idmap resets={tl.n_idmap_resets}  binding mismatches="
+        f"{tl.n_binding_mismatches}")
+    if not same or entry.n_disconnected or tl.n_idmap_resets \
+            or tl.n_binding_mismatches or store.n_commit_hook_errors:
+        raise AssertionError("apply_update + timeline at full size")
+
+    ck = CHECKPOINTS / gid
+    shutil.rmtree(ck, ignore_errors=True)
+    back = SimpleNamespace(store=ResultStore(),
+                           timelines=TimelineManager(TimelineConfig()))
+    try:
+        t0 = time.perf_counter()
+        step = save_service_checkpoint(holder, str(ck))
+        t_save = time.perf_counter() - t0
+        n_bytes = dir_bytes(ck)
+        t0 = time.perf_counter()
+        restored = restore_service_checkpoint(back, str(ck))
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    a, b = store.get(gid), back.store.get(gid)
+    bits = (restored == step and b.graph.device == g.device
+            and same_entry(a, b))
+    states = same_state(tl, back.timelines)
+    rng = np.random.default_rng(22)
+    probes = rng.integers(0, int(tl.external_ids(gid).max()) + 100, 10_000)
+    t_first = tl.snapshots(gid)[0].t
+    members = all(tl.membership_at(gid, e, t) ==
+                  back.timelines.membership_at(gid, e, t)
+                  for e in probes.tolist() for t in (None, t_first))
+    log(f"  service checkpoint: save={t_save} s ({n_bytes} bytes)  restore="
+        f"{t_restore} s  entry bit for bit (src, dst, w, C, deferred, "
+        f"version)={bits}  state() equal={states}  membership_at equal for "
+        f"10,000 seeded externals at two times={members}")
+    if not (bits and states and members):
+        raise AssertionError("service checkpoint round trip at full size")
+    del back
+
+    lp, wall, n_lpa, peak = timed_path(lambda: lpa_result(gid, g))
+    same = (np.array_equal(lp.C, fast.labels.cpu().numpy())
+            and lp.n_communities == fast.n_communities
+            and lp.n_disconnected == fast.n_disconnected
+            and lp.q == fast.modularity)
+    log(f"  lpa_result: wall={wall} s  segreduce launches={n_lpa}  peak "
+        f"device memory={peak:.2f} GiB  == phase 4's fast tier (labels, "
+        f"communities, disconnected, Q bits)={same}  guarantee="
+        f"{lp.guarantee}  contract={lp.contract}")
+    if not same or lp.guarantee or lp.contract != contract_for("fast") \
+            or lp.contract != fast.contract:
+        raise AssertionError("lpa_result differs from the fast tier")
+    return {f"store.apply_update + timeline, {gid}": n_update,
+            f"lpa_result (degraded), {gid}": n_lpa}
+
+
+def same_batch(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        np.array_equal(x.C, y.C) and x.q == y.q
+        and (x.n_communities, x.n_disconnected) == (y.n_communities,
+                                                    y.n_disconnected)
+        for x, y in zip(a, b))
+
+
+def resilience_small_phase(engine) -> dict:
+    """Phase 7 on the dense-scan family (``nv = 1025``), card and CPU side
+    by side: a service checkpoint round trip, after which one churn update
+    on the original and on the restored entry gives the same bits; an
+    ``engine.detect`` fault on phase 6's engine retried to the clean batch;
+    the ``engine.detect.hang`` seam tripping the watchdog; a breaker that
+    opens, sheds to the degraded tier, half-opens and closes on an
+    injected clock; and an auto-checkpointer whose newest snapshot the
+    ``checkpoint.io`` seam tears, recovered from the one before.  Returns
+    the launches by path."""
+    import shutil
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from repro_torch.core import DetectOptions, detect
+    from repro_torch.resilience import (AutoCheckpointer, BreakerConfig,
+                                        DispatchTimeout, FaultError,
+                                        FaultPlan, FaultSpec,
+                                        ResilienceManager, RetryPolicy,
+                                        call_with_timeout, lpa_result,
+                                        run_with_policy)
+    from repro_torch.service import BatchedLouvainEngine, Bucket, ResultStore
+    from repro_torch.timeline import (TimelineManager,
+                                      restore_service_checkpoint,
+                                      save_service_checkpoint)
+
+    launches = {}
+    upd = churn_batch(dense_graph("cpu"), seed=5, remove=16, add=8,
+                      delete=64, insert=32)[0]
+    t0 = time.perf_counter()
+    after = {}
+    for dev in ("cuda", "cpu"):
+        g = dense_graph(dev)
+        det = detect(g, device=dev)
+        store, back = ResultStore(device=dev), ResultStore(device=dev)
+        store.put("d", g, det.labels, n_communities=det.n_communities,
+                  n_disconnected=det.n_disconnected, q=det.modularity)
+        ck = CHECKPOINTS / f"dense-{dev}"
+        shutil.rmtree(ck, ignore_errors=True)
+        try:
+            save_service_checkpoint(SimpleNamespace(store=store), str(ck))
+            restore_service_checkpoint(SimpleNamespace(store=back), str(ck))
+        finally:
+            shutil.rmtree(ck, ignore_errors=True)
+        if not same_entry(store.get("d"), back.get("d")):
+            raise AssertionError(f"dense checkpoint round trip on {dev}")
+        original = store.apply_update("d", upd)
+        if dev == "cuda":
+            restored, _, n, _ = timed_path(lambda: back.apply_update("d",
+                                                                     upd))
+            launches[f"apply_update on a restored entry, {DENSE_GRAPH}"] = n
+        else:
+            restored = back.apply_update("d", upd)
+        after[dev] = (original, restored)
+    same = (same_entry(*after["cuda"]) and same_entry(*after["cpu"])
+            and same_entry(after["cuda"][1], after["cpu"][1]))
+    log(f"  {DENSE_GRAPH}: checkpoint round trip, then one churn update on "
+        f"the original and the restored entry: all four equal (card, CPU)="
+        f"{same}  disconnected={after['cuda'][1].n_disconnected}  "
+        f"{time.perf_counter() - t0} s")
+    if not same or after["cuda"][1].n_disconnected:
+        raise AssertionError("update after a dense checkpoint round trip")
+
+    graphs = [dense_graph("cuda", seed=s) for s in range(3, 7)]
+    t0 = time.perf_counter()
+    clean = engine.detect_batch(graphs)
+    got = {}
+    for dev, eng in (("cuda", engine),
+                     ("cpu", BatchedLouvainEngine(device="cpu"))):
+        eng.faults = FaultPlan({"engine.detect": FaultSpec(count=1)})
+        retried = []
+        got[dev] = run_with_policy(
+            lambda: eng.detect_batch(graphs),
+            RetryPolicy(max_attempts=3, backoff_s=0.0),
+            on_retry=lambda a, e: retried.append(type(e).__name__))
+        if retried != ["FaultError"]:
+            raise AssertionError(f"retry on {dev}: {retried}")
+        eng.faults = None
+    same = same_batch(got["cuda"], clean) and same_batch(got["cpu"], clean)
+    log(f"  engine.detect fault, count=1, under run_with_policy: retried once"
+        f", batch of {len(graphs)} equal to the clean batch (card, CPU)="
+        f"{same}  {time.perf_counter() - t0} s")
+    if not same:
+        raise AssertionError("the retried batch differs from the clean one")
+
+    # the hung attempt sleeps on the host; afterwards it fails at the
+    # engine.detect seam scoped to its ids, so it queues no kernel
+    plan = FaultPlan({"engine.detect.hang": FaultSpec(hang_s=0.5, count=1),
+                      "engine.detect": FaultSpec(graph_ids=("hung",))})
+    engine.faults = plan
+    t0 = time.perf_counter()
+    try:
+        call_with_timeout(lambda: engine.detect_batch(graphs[:1],
+                                                      fault_ids=["hung"]),
+                          0.1)
+        raise AssertionError("the watchdog did not fire")
+    except DispatchTimeout:
+        t_fire = time.perf_counter() - t0
+    while not plan.injected["engine.detect"] and \
+            time.perf_counter() - t0 < 10.0:
+        time.sleep(0.01)
+    engine.faults = None
+    log(f"  engine.detect.hang (0.5 s) under call_with_timeout(0.1 s): "
+        f"DispatchTimeout after {t_fire} s; the abandoned attempt ended at "
+        f"its seam={plan.injected['engine.detect'] == 1}")
+    if plan.injected["engine.detect"] != 1:
+        raise AssertionError("the abandoned attempt did not end")
+
+    now = [0.0]
+    bucket = Bucket(1024, 16384)
+    mgr = ResilienceManager(SimpleNamespace(
+        fault_plan=FaultPlan({"engine.detect": FaultSpec(count=2)}),
+        retry=RetryPolicy(max_attempts=1), degrade_tenants=None,
+        breaker=BreakerConfig(failure_threshold=2, cooldown_s=1.0),
+        degrade_enabled=True, degrade_modes=("lpa",),
+        detect=DetectOptions()), clock=lambda: now[0])
+    engine.faults = mgr.plan
+    states = [mgr.breaker_state(bucket)]
+    for _ in range(2):
+        try:
+            mgr.dispatch("detect", bucket,
+                         lambda: engine.detect_batch(graphs[:1]))
+        except FaultError:
+            pass
+        states.append(mgr.breaker_state(bucket))
+    shut = not mgr.allow(bucket)
+    shed = mgr.degraded("d0", graphs[0], ResultStore(), now=now[0])
+    on_cpu = lpa_result("d0", graphs[0], device="cpu")
+    shed_ok = (not shed.guarantee and np.array_equal(shed.C, on_cpu.C)
+               and shed.q == on_cpu.q)
+    now[0] += 1.5
+    probe = mgr.allow(bucket)
+    states.append(mgr.breaker_state(bucket))
+    res = mgr.dispatch("detect", bucket,
+                       lambda: engine.detect_batch(graphs[:1]))
+    states.append(mgr.breaker_state(bucket))
+    engine.faults = None
+    log(f"  breaker (threshold 2, cooldown 1 s, injected clock): states="
+        f"{states}  shut while open={shut}  shed to lpa on the card == CPU="
+        f"{shed_ok}  probe admitted={probe}  probe result == clean="
+        f"{same_batch(res, clean[:1])}")
+    if states != ["closed", "closed", "open", "half-open", "closed"] or \
+            not (shut and shed_ok and probe and same_batch(res, clean[:1])):
+        raise AssertionError("breaker sequence")
+
+    ck = CHECKPOINTS / "auto"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        tl = TimelineManager()
+        holder = SimpleNamespace(store=ResultStore(on_commit=tl.observe_commit),
+                                 timelines=tl)
+        det = detect(graphs[0])
+        holder.store.put("d", graphs[0], det.labels,
+                         n_communities=det.n_communities,
+                         n_disconnected=det.n_disconnected, q=det.modularity)
+        ac = AutoCheckpointer(holder, ckpt_dir=str(ck), faults=FaultPlan(
+            {"checkpoint.io": FaultSpec(skip=1, count=1)}))
+        good = ac.snapshot(force=True)
+        e0, meta0 = holder.store.get("d"), tl.state()[1]
+        holder.store.apply_update("d", churn_batch(
+            graphs[0], seed=6, remove=16, add=8, delete=64, insert=32)[0])
+        torn = ac.snapshot(force=True)
+        fresh = SimpleNamespace(store=ResultStore(),
+                                timelines=TimelineManager())
+        ac2 = AutoCheckpointer(fresh, ckpt_dir=str(ck))
+        step = ac2.recover()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    ok = (ac.n_torn == 1 and step == good != torn
+          and ac2.n_corrupt_skipped == 1
+          and same_entry(fresh.store.get("d"), e0)
+          and fresh.timelines.state()[1] == meta0)
+    log(f"  auto-checkpointer: snapshots {good} and {torn} (torn by the "
+        f"checkpoint.io seam: {ac.n_torn}); recover() restored step {step}"
+        f", skipped {ac2.n_corrupt_skipped} corrupt; the entry and the "
+        f"timeline as at step {good}={ok}")
+    if not ok:
+        raise AssertionError("torn-snapshot recovery")
     return launches
 
 
@@ -1522,8 +1889,10 @@ def main(argv=None) -> int:
     if int(labels.min()) < 0 or int(labels.max()) >= res.n_communities:
         raise AssertionError("labels out of [0, n_communities)")
     by_path = {"detect standard": launches}
-    by_path.update(tiers_phase(g, res))
-    by_path["update_communities (warm update)"] = dynamic_phase(g, res.labels)
+    tier_launches, fast = tiers_phase(g, res)
+    by_path.update(tier_launches)
+    by_path["update_communities (warm update)"], churn, warm = dynamic_phase(
+        g, res.labels)
     by_path[f"detect dense standard, {DENSE_GRAPH}"] = dense_launches
     by_path[f"update_communities dense, {DENSE_GRAPH}"] = \
         update_dense_launches
@@ -1536,7 +1905,15 @@ def main(argv=None) -> int:
     api_entries = api_phase(g, res.labels, profile=args.profile)
 
     log("phase 6: the batched engine and the store, on the card")
-    by_path.update(engine_phase(profile=args.profile))
+    engine_launches, engine = engine_phase(profile=args.profile)
+    by_path.update(engine_launches)
+
+    log("phase 7: the timeline, the checkpoint and the degraded tier, on "
+        "the card")
+    t0 = time.perf_counter()
+    by_path.update(timeline_phase(g, res, fast, churn, warm, args.scale))
+    by_path.update(resilience_small_phase(engine))
+    log(f"  phase 7: {time.perf_counter() - t0} s")
 
     entry["launches"] = launches
     entry["launches_by_path"] = by_path

@@ -819,3 +819,91 @@ def test_update_batch_card_equals_cpu(cuda):
             b.n_communities, b.n_disconnected, b.fraction, b.iterations,
             b.n_affected, b.split_moved, b.q)
         assert a.n_disconnected == 0
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint store, the timeline and the degraded tier (ROADMAP A.10)
+# ---------------------------------------------------------------------------
+
+def _store_pair(cuda, **kw):
+    """A store on the card and one on the CPU, each with a timeline
+    manager on its commit hook, holding the same detection."""
+    from repro_torch.service import ResultStore
+    from repro_torch.timeline import TimelineConfig, TimelineManager
+
+    g = _engine_batch((1024, 16384))[0]
+    det = detect(g, device="cpu")
+    out = []
+    for dev, gg in ((cuda, g.to(cuda)), ("cpu", g)):
+        tl = TimelineManager(TimelineConfig(**kw), clock=lambda: 0.0)
+        store = ResultStore(device=dev, on_commit=tl.observe_commit)
+        store.put("g", gg, det.labels.numpy(), n_communities=det.n_communities,
+                  n_disconnected=det.n_disconnected, q=det.modularity)
+        out.append(type("Holder", (), dict(store=store, timelines=tl))())
+    return out
+
+
+def _churn(n, seed):
+    rng = np.random.default_rng(seed)
+    m = n - 6 + 3
+    return GraphUpdate(u=rng.integers(0, m, 40), v=rng.integers(0, m, 40),
+                       dw=np.ones(40, np.float32), add=3,
+                       remove=np.sort(rng.choice(n, 6, replace=False)))
+
+
+def _same_entry(a, b):
+    for k in ("src", "dst", "w", "n_nodes"):
+        assert torch.equal(getattr(a.graph, k).cpu(), getattr(b.graph, k).cpu())
+    np.testing.assert_array_equal(a.C, b.C)
+    np.testing.assert_array_equal(a.deferred, b.deferred)
+    assert (a.version, a.n_communities, a.n_disconnected, a.q) == (
+        b.version, b.n_communities, b.n_disconnected, b.q)
+
+
+def test_service_checkpoint_round_trip_on_card(cuda, tmp_path):
+    from repro_torch.timeline import (restore_service_checkpoint,
+                                      save_service_checkpoint)
+
+    card, cpu = _store_pair(cuda)
+    n = int(cpu.store.get("g").graph.n_nodes)
+    for h in (card, cpu):
+        h.store.apply_update("g", _churn(n, 0))
+    save_service_checkpoint(card, str(tmp_path))
+    back, _ = _store_pair(cuda)
+    assert restore_service_checkpoint(back, str(tmp_path)) == 0
+    got = back.store.get("g")
+    assert got.graph.device.type == "cuda"
+    _same_entry(got, card.store.get("g"))
+    _same_entry(got, cpu.store.get("g"))
+    n = int(got.graph.n_nodes)
+    for h in (back, cpu):
+        h.store.apply_update("g", _churn(n, 1))
+    _same_entry(back.store.get("g"), cpu.store.get("g"))
+    assert back.store.get("g").n_disconnected == 0
+
+
+def test_lpa_result_card_equals_cpu(cuda):
+    from repro_torch.resilience import lpa_result
+
+    for g in _engine_batch((1024, 16384)):
+        a = lpa_result("g", g.to(cuda))
+        b = lpa_result("g", g, device="cpu")
+        np.testing.assert_array_equal(a.C, b.C)
+        assert (a.n_communities, a.n_disconnected, a.q) == (
+            b.n_communities, b.n_disconnected, b.q)
+        assert not a.guarantee and a.contract.tier == "fast"
+
+
+@pytest.mark.parametrize("wbd", [False, True])
+def test_timeline_state_card_equals_cpu(cuda, wbd):
+    card, cpu = _store_pair(cuda, weight_by_degree=wbd)
+    for step in range(3):
+        n = int(cpu.store.get("g").graph.n_nodes)
+        for h in (card, cpu):
+            h.timelines.set_time("g", float(step + 1))
+            h.store.apply_update("g", _churn(n, 10 + step))
+    (aa, am), (ba, bm) = card.timelines.state(), cpu.timelines.state()
+    assert am == bm and list(aa) == list(ba)
+    for k in aa:
+        assert aa[k].dtype == ba[k].dtype and np.array_equal(aa[k], ba[k]), k
+    assert card.timelines.n_idmap_resets == 0
