@@ -126,13 +126,45 @@ result line):
    ``AutoCheckpointer`` whose newest snapshot the ``checkpoint.io`` seam
    tears, recovered from the one before.
 
+8. The service front end, on the card (``repro_torch.service``:
+   ``CommunityService``, ``ServiceFrontend``, ``AsyncCommunityService``,
+   the replay harness), at the default ``ServiceConfig()``'s ladder of
+   five buckets and the reference CLI's settings.  (1) The reference
+   CLI's sync traffic (``serve_communities.py`` ``run_traffic``: its three
+   graph families plus phase 6's ``sbm_graph(1024, 16, 0.2, 0.003)``, 256
+   arrivals, 30 % of them ``synth_updates`` of 4 edges, each graph updated
+   at most once) through ``CommunityService``: every request served, 0
+   disconnected, every detect entry equal to ``detect()`` of its admitted
+   graph (labels, counts, Q bits), and the same traffic with
+   ``update_batch_size=8`` committing the same entries; then phase 6's two
+   families of 32 through the front end against phase 6's bare
+   ``detect_batch``.  (2) Three tenants at Zipf-skewed rates pinned to
+   the three tiers through ``AsyncCommunityService``
+   (``max_pending_per_tenant=12``, blocking submission): every future on
+   its tier and equal to its tier's ``detect()``, 0 disconnected for
+   standard and max-quality.  (3) The planted lifecycle script through
+   ``ingest_window`` (``timeline_enabled``, ``compact_window=4``) on the
+   card and on the CPU: the events the timeline test asserts, equal on
+   both with equal tracker state and memberships.  (4) ``sweep_rates``
+   over 15, 30, 60 and 120 requests/s with the CLI's ``--replay``
+   settings (offered, served, rejected, p50/p99, queue/engine/host shares,
+   the knee), then one replay at 60/s with a live ``/metrics`` scrape
+   mid-window.  (5) Chaos: 64 detects with ``engine.detect`` raising
+   twice, one attempt, a breaker and the LPA degraded tier: every
+   degraded result flagged, every other equal to the fault-free run's
+   bits, the breakers closed at the end.  Each step prints its host time,
+   its segment-reduce launches (above 0), its latency p50/p99, and the
+   sync and async steps the host ms a request by phase (admission,
+   compose, engine, commit, resolve; a batch-level span once a batch).
+
 ``--profile`` adds a traced run of phase 4's ``detect()`` of each tier
 (device time by kernel, the device's busy share, and each segment-reduce
 kernel's total), in phase
 5, three traced calls of each ``segsum``, ``cumsum`` and ``spmm`` case
 (device time a call by kernel), and in phase 6 one traced standard batch
-of each bucket (CUDA kernel launches and the device's busy share).  The second-to-last lines are
-one JSON object for the kernels (``kernels``) and the card line; the last
+of each bucket (CUDA kernel launches and the device's busy share), and in
+phase 8 the traced replay at 60/s (the device's busy share).  The
+second-to-last lines are one JSON object for the kernels (``kernels``) and the card line; the last
 line is the result object.
 """
 from __future__ import annotations
@@ -1367,9 +1399,11 @@ def traced_batch(engine, graphs, algorithm):
     return wall, launches, busy_us / 1e6
 
 
-def engine_phase(profile=False) -> tuple[dict, object]:
+def engine_phase(profile=False) -> tuple[dict, object, dict]:
     """Phase 6: the batched engine and the result store on the card.
-    Returns the segment-reduce launches by path and the engine."""
+    Returns the segment-reduce launches by path, the engine and each
+    family's standard batch wall seconds (phase 8 compares the front end
+    with them)."""
     import numpy as np
     import torch
 
@@ -1380,6 +1414,7 @@ def engine_phase(profile=False) -> tuple[dict, object]:
     engine = BatchedLouvainEngine(algorithms=ALGORITHMS)
     launches = {}
     standard = {}
+    walls = {}
     for name, bucket, graphs in engine_families():
         n = len(graphs)
         log(f"  {name}: scan={engine.scan_for(bucket)}")
@@ -1414,6 +1449,7 @@ def engine_phase(profile=False) -> tuple[dict, object]:
             launches[f"engine detect_batch {alg}, {name}"] = n_seg
             if alg == "standard":
                 standard[name] = res
+                walls[name] = wall
         if profile:
             wall, n_launch, busy = traced_batch(engine, graphs, "standard")
             sweeps = sum(r.sweeps for r in standard[name])
@@ -1465,7 +1501,7 @@ def engine_phase(profile=False) -> tuple[dict, object]:
         raise AssertionError(f"update_batch: equal={equal}, {n_disc} "
                              "disconnected")
     launches[f"engine update_batch, {name}"] = n_seg
-    return launches, engine
+    return launches, engine, walls
 
 
 CHECKPOINTS = ROOT / "build" / "chip_smoke_checkpoints"   # ignored by git
@@ -1811,6 +1847,627 @@ def resilience_small_phase(engine) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# phase 8: the service front end (ServiceFrontend, the async service, the
+# sync adapter, the replay harness) on the card
+# ---------------------------------------------------------------------------
+
+FRONTEND_FAMILIES = ("ego_small", "ego_dense", "road", "sbm1024")
+# span names of a request's trace, by the host phase they spend
+HOST_PHASES = {"admission": ("submit", "admission", "repad"),
+               "compose": ("drr-compose",),
+               "engine": ("compile", "engine-dispatch", "device-sync"),
+               "commit": ("store-commit",),
+               "resolve": ("resolve",)}
+
+
+def frontend_graph(kind: str, seed: int, device):
+    """One request graph of a family: a copy of the reference CLI's
+    ``synth_graph`` (``src/repro/launch/serve_communities.py:118-135``:
+    sparse ego-nets in ``Bucket(64, 512)``, dense ego-nets in
+    ``Bucket(64, 2048)``, road-like grids in ``Bucket(256, 2048)``), and
+    phase 6's ``sbm_graph(1024, 16, 0.2, 0.003)`` family in
+    ``Bucket(1024, 16384)`` (the next seed that fits it)."""
+    import numpy as np
+
+    from repro_torch.graph import grid_graph, sbm_graph
+
+    rng = np.random.default_rng(seed)
+    if kind == "ego_small":
+        n = int(rng.integers(28, 52))
+        return sbm_graph(n_nodes=n, n_blocks=3, p_in=0.35, p_out=0.03,
+                         seed=seed, device=device)[0]
+    if kind == "ego_dense":
+        n = int(rng.integers(48, 60))
+        return sbm_graph(n_nodes=n, n_blocks=4, p_in=0.7, p_out=0.08,
+                         seed=seed, device=device)[0]
+    if kind == "road":
+        return grid_graph(int(rng.integers(10, 15)), 16, device=device)
+    while True:
+        try:
+            return sbm_graph(1024, 16, 0.2, 0.003, seed=seed, n_cap=1024,
+                             m_cap=16384, device=device)[0]
+        except ValueError:      # more directed edges than the bucket
+            seed += 1
+
+
+def synth_updates(entry, seed: int, n_edges: int = 4):
+    """The reference CLI's ``synth_updates``: a small undirected edge batch
+    inside the stored graph's vertex set."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(entry.graph.n_nodes)
+    u = rng.integers(0, n, n_edges)
+    v = rng.integers(0, n, n_edges)
+    keep = u != v
+    return u[keep], v[keep], np.ones(int(keep.sum()), np.float32)
+
+
+def host_ms_by_phase(futs) -> dict:
+    """Wall ms a request of each host phase (:data:`HOST_PHASES`), from
+    the requests' traces; a batch-level span (compose, engine) stamped on
+    every member counts once.  ``queue`` is the mean wait, not host
+    work."""
+    seen = {k: set() for k in HOST_PHASES}
+    queue = 0.0
+    for f in futs:
+        for s in f.trace.spans:
+            if s.name == "queue-wait":
+                queue += s.t_end - s.t_start
+            for group, names in HOST_PHASES.items():
+                if s.name in names:
+                    seen[group].add((s.name, s.t_start, s.t_end))
+    n = max(len(futs), 1)
+    out = {g: 1e3 * sum(t1 - t0 for _, t0, t1 in ivs) / n
+           for g, ivs in seen.items()}
+    out["queue (wait)"] = 1e3 * queue / n
+    return out
+
+
+def engine_rate_by_bucket(detect_futs) -> dict:
+    """Detections a second of engine time, by bucket: each bucket's
+    detect requests over its batches' engine intervals, each once."""
+    per = {}
+    for f in detect_futs:
+        e = f.result()
+        b = (e.bucket.n_cap, e.bucket.m_cap)
+        n, ivs = per.get(b, (0, set()))
+        ivs |= {(s.name, s.t_start, s.t_end) for s in f.trace.spans
+                if s.name in HOST_PHASES["engine"]}
+        per[b] = (n + 1, ivs)
+    return {b: n / max(sum(t1 - t0 for _, t0, t1 in ivs), 1e-9)
+            for b, (n, ivs) in sorted(per.items())}
+
+
+def same_as_detect_entry(e) -> bool:
+    """A detect entry against ``detect()`` of its admitted graph on the
+    card: labels, counts and Q bits."""
+    import numpy as np
+
+    from repro_torch.core import DetectOptions, detect
+
+    d = detect(e.graph, options=DetectOptions(algorithm=e.algorithm),
+               device="cuda")
+    return (np.array_equal(e.C, d.labels.cpu().numpy())
+            and (e.n_communities, e.n_disconnected, e.q)
+            == (d.n_communities, d.n_disconnected, d.modularity))
+
+
+def warmed_sync_service(update_batch_size: int):
+    """``CommunityService`` with the default ``ServiceConfig`` (its
+    five-bucket ladder, batches of 32, 50 ms) on the card, after a warm
+    prologue: one graph and one update a family, then ``engine.warm`` of
+    each bucket; its metrics and trace sink reset."""
+    from repro_torch.service import CommunityService, ServiceConfig
+
+    svc = CommunityService(config=ServiceConfig(
+        update_batch_size=update_batch_size), device="cuda")
+    for i, fam in enumerate(FRONTEND_FAMILIES):
+        svc.submit_detect(f"warm-{fam}", frontend_graph(fam, 10_000 + i,
+                                                         "cuda"))
+    svc.drain()
+    for fam in FRONTEND_FAMILIES:
+        e = svc.result(f"warm-{fam}")
+        svc.submit_update(f"warm-{fam}", synth_updates(e, 1))
+        svc.engine.warm(e.bucket)
+    svc.drain()
+    svc.metrics.reset()
+    if svc.frontend.mem_sink is not None:
+        svc.frontend.mem_sink.reset()
+    return svc
+
+
+def sync_traffic(svc):
+    """The reference CLI's sync traffic through a warmed
+    ``CommunityService``: 256 arrivals, 30 % of them ``synth_updates`` of
+    4 edges on a graph submitted earlier and not updated yet, pumping
+    after each.  The plan of arrivals comes from seed 0 alone, and no
+    graph takes two updates (two in one batch would fold into one warm
+    update), so two runs serve the same traffic and commit the same
+    entries whatever their batching.  Returns (detect futures, update
+    futures, seconds)."""
+    import numpy as np
+
+    n_requests, update_frac, seed = 256, 0.3, 0
+    rng = np.random.default_rng(seed)
+    submitted, dets, upds = [], [], []
+    t0 = time.perf_counter()
+    for i in range(n_requests):
+        if submitted and rng.random() < update_frac:
+            gid = submitted.pop(int(rng.integers(0, len(submitted))))
+            if svc.result(gid) is None:     # its detect still queued
+                svc.pump(force=True)
+            upds.append(svc.frontend.submit_update(
+                gid, synth_updates(svc.result(gid), seed + i)))
+        else:
+            fam = FRONTEND_FAMILIES[int(rng.integers(0,
+                                                     len(FRONTEND_FAMILIES)))]
+            gid = f"g{i}-{fam}"
+            dets.append(svc.detect(gid, frontend_graph(fam, seed + i,
+                                                       "cuda")))
+            submitted.append(gid)
+        svc.pump()
+    svc.drain()
+    return dets, upds, time.perf_counter() - t0
+
+
+def report_line(rep) -> str:
+    return (f"p50={rep['p50_ms']} ms  p99={rep['p99_ms']} ms  "
+            f"detect p50={rep['p50_detect_ms']} ms  update p50="
+            f"{rep['p50_update_ms']} ms  graphs/s={rep['graphs_per_s']}")
+
+
+def frontend_sync_step() -> dict:
+    """Phase 8.1: the sync mix twice, immediate and batched updates; each
+    service warmed before the launch count is set to 0."""
+    launches = {}
+    svc = warmed_sync_service(update_batch_size=1)
+    (dets, upds, t_run), wall, n, _ = timed_path(lambda: sync_traffic(svc))
+    launches["front end sync mix (CommunityService, update_batch_size=1)"] \
+        = n
+    rep = svc.metrics.report()
+    bad = [f.req_id for f in dets + upds if f.exception() is not None]
+    n_disc = sum(f.result().n_disconnected for f in dets)
+    log(f"  8.1 sync mix, default ServiceConfig, update_batch_size=1: "
+        f"{len(dets)} detects + {len(upds)} updates "
+        f"({rep['n_rebucketed']} re-bucketed) in {t_run} s "
+        f"(with the last sync {wall} s)  failed={len(bad)}  "
+        f"disconnected={n_disc}  segreduce launches={n}")
+    log(f"    {report_line(rep)}")
+    log("    host ms a request by phase: " + "  ".join(
+        f"{k}={v:.4f}" for k, v in host_ms_by_phase(dets + upds).items()))
+    log("    detections a second of engine time, by bucket: " + "  ".join(
+        f"{b}={r:.2f}" for b, r in engine_rate_by_bucket(dets).items()))
+    t0 = time.perf_counter()
+    equal = all(same_as_detect_entry(f.result()) for f in dets)
+    log(f"    every detect entry == detect() of its admitted graph on the "
+        f"card (labels, counts, Q bits)={equal}  "
+        f"({time.perf_counter() - t0} s)")
+    if bad or n_disc or not equal:
+        raise AssertionError(f"sync mix: failed={bad} disconnected={n_disc}"
+                             f" equal to detect()={equal}")
+
+    svc8 = warmed_sync_service(update_batch_size=8)
+    (dets8, upds8, t_run8), wall8, n8, _ = timed_path(
+        lambda: sync_traffic(svc8))
+    launches["front end sync mix (update_batch_size=8)"] = n8
+    rep8 = svc8.metrics.report()
+    gids = svc.store.graph_ids()
+    same = (sorted(gids) == sorted(svc8.store.graph_ids())
+            and all(same_entry(svc.result(g), svc8.result(g))
+                    for g in gids)
+            and all(same_entry(a.result(), b.result())
+                    for a, b in zip(dets, dets8)))
+    log(f"  8.1 the same traffic, update_batch_size=8: {rep8['n_update']} "
+        f"updates in {rep8['n_update_batches']} batches, in {t_run8} s "
+        f"(with the last sync {wall8} s)  every entry equal to "
+        f"update_batch_size=1's={same}  segreduce launches={n8}")
+    log(f"    {report_line(rep8)}")
+    log("    host ms a request by phase: " + "  ".join(
+        f"{k}={v:.4f}" for k, v in host_ms_by_phase(dets8 + upds8).items()))
+    if not same or any(f.exception() is not None for f in dets8 + upds8):
+        raise AssertionError("batched updates differ from immediate ones")
+    svc.close()
+    svc8.close()
+    return launches
+
+
+# 8.1b's order of runs: front end (F) and bare detect_batch (B) in three
+# interleaved pairs, so a drift of the host's speed falls on both
+FRONT_VS_BARE_ORDER = "FBBFFB"
+
+
+def frontend_vs_engine_step(engine_walls) -> dict:
+    """Phase 8.1b: phase 6's two families of 32, standard, through a
+    warmed ``CommunityService`` (one batch of 32, new graph ids each time)
+    and as the bare ``detect_batch`` of the same graphs on the service's
+    engine, in :data:`FRONT_VS_BARE_ORDER`; the first front-end batch is
+    the counted one.  Prints each time, the medians and their ratio (and
+    phase 6's time, from earlier in the run)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.service import CommunityService, ServiceConfig
+
+    launches = {}
+    for name, bucket, graphs in engine_families():
+        svc = CommunityService(config=ServiceConfig(), device="cuda")
+        svc.engine.warm(bucket)
+
+        def serve(r):
+            futs = [svc.detect(f"r{r}-g{i}", g)
+                    for i, g in enumerate(graphs)]
+            svc.drain()
+            return all(f.exception() is None
+                       and not f.result().n_disconnected for f in futs)
+
+        def synced(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        ok, wall, n, _ = timed_path(lambda: serve(0))
+        times = {"F": [wall], "B": []}
+        for r, kind in enumerate(FRONT_VS_BARE_ORDER[1:], 1):
+            if kind == "F":
+                served, t = synced(lambda: serve(r))
+                ok = ok and served
+            else:
+                _, t = synced(lambda: svc.engine.detect_batch(graphs))
+            times[kind].append(t)
+        front, bare = (statistics.median(times[k]) for k in "FB")
+        log(f"  8.1b {name}, standard, {len(graphs)} at a time, in the order "
+            f"{FRONT_VS_BARE_ORDER}: through CommunityService "
+            f"{times['F']} s, median {front} s ({len(graphs) / front} "
+            f"graphs/s)  the bare detect_batch {times['B']} s, median "
+            f"{bare} s ({len(graphs) / bare} graphs/s)  front end/bare of "
+            f"the medians={front / bare}  phase 6's bare detect_batch="
+            f"{engine_walls.get(name)} s  segreduce launches (the first "
+            f"front-end batch)={n}  served={ok}")
+        if not ok:
+            raise AssertionError(f"front end on {name}")
+        launches[f"front end detect of 32, {name}"] = n
+        svc.close()
+    return launches
+
+
+ZIPF_S = 1.5        # the replay harness's tenant skew (ReplayConfig)
+
+
+def frontend_tiers_step() -> dict:
+    """Phase 8.2: 48 requests of three tenants at Zipf-skewed rates pinned
+    to the three tiers (the CLI's ``--tiers``) through
+    ``AsyncCommunityService`` with ``max_pending_per_tenant=12`` and
+    blocking submission.  The service is started and warmed on the event
+    loop before the launch count is set to 0; only the submissions and
+    awaits are counted."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.service import AsyncCommunityService, ServiceConfig
+    from repro_torch.service.buckets import admit
+
+    n_requests = 48
+    tiers = (("speed", "fast"), ("std", "standard"),
+             ("quality", "max-quality"))
+    ranks = np.arange(1, len(tiers) + 1, dtype=np.float64)
+    p = ranks ** -ZIPF_S / (ranks ** -ZIPF_S).sum()
+    rng = np.random.default_rng(3)
+    who = rng.choice(len(tiers), n_requests, p=p)
+    fams = rng.integers(0, 3, n_requests)
+    cfg = ServiceConfig(tenant_tiers=tiers, batch_size=16,
+                        max_delay_s=0.025, max_pending_per_tenant=12)
+
+    async def start():
+        svc = await AsyncCommunityService(cfg, device="cuda").start()
+        for i, fam in enumerate(FRONTEND_FAMILIES[:3]):
+            svc.engine.warm(admit(frontend_graph(fam, 20_000 + i, "cuda"),
+                                  cfg.buckets)[1])
+        svc.metrics.reset()
+        return svc
+
+    async def traffic(svc):
+        futs = []
+        for i in range(n_requests):
+            tenant = tiers[int(who[i])][0]
+            g = frontend_graph(FRONTEND_FAMILIES[int(fams[i])], 500 + i,
+                               "cuda")
+            futs.append((tenant, await svc.submit_detect(
+                f"t{i}", g, tenant=tenant)))
+            await asyncio.sleep(float(rng.exponential(0.01)))
+        entries = [(t, await f) for t, f in futs]
+        return entries, svc.metrics.report(), [f for _, f in futs]
+
+    with asyncio.Runner() as runner:
+        svc = runner.run(start())
+        try:
+            (entries, rep, futs), wall, n, _ = timed_path(
+                lambda: runner.run(traffic(svc)))
+        finally:
+            runner.run(svc.close())
+    pin = dict(tiers)
+    ok_tier = all(e.algorithm == pin[t] for t, e in entries)
+    equal = all(same_as_detect_entry(e) for _, e in entries)
+    disc = {tier: sum(e.n_disconnected for t, e in entries
+                      if pin[t] == tier) for _, tier in tiers}
+    counts = {t: sum(1 for tt, _ in entries if tt == t) for t, _ in tiers}
+    log(f"  8.2 tenants and tiers, AsyncCommunityService: {len(entries)} "
+        f"requests {counts} in {wall} s  each on its tier={ok_tier}  each "
+        f"== its tier's detect() (labels, counts, Q bits)={equal}  "
+        f"disconnected by tier={disc}  segreduce launches={n}")
+    log(f"    {report_line(rep)}  by tenant p50: " + "  ".join(
+        f"{t}={rep['tenants'][t]['p50_ms']}" for t, _ in tiers
+        if t in rep["tenants"]))
+    log("    host ms a request by phase: " + "  ".join(
+        f"{k}={v:.4f}" for k, v in host_ms_by_phase(futs).items()))
+    if not (ok_tier and equal) or disc["standard"] or disc["max-quality"]:
+        raise AssertionError("tenants and tiers")
+    return {"front end tenants and tiers (AsyncCommunityService)": n}
+
+
+def planted_run(device):
+    """The planted lifecycle script through ``ingest_window`` of a sync
+    service with ``timeline_enabled`` and ``compact_window=4``: (events,
+    tracker state, memberships at each window, snapshots)."""
+    from repro_torch.data import planted_timeline_script
+    from repro_torch.service import CommunityService, ServiceConfig
+
+    g0, windows, expected = planted_timeline_script(device=device)
+    svc = CommunityService(config=ServiceConfig(
+        timeline_enabled=True, compact_window=4), device=device)
+    svc.frontend.set_snapshot_time("g", 0.0)
+    svc.submit_detect("g", g0)
+    svc.pump(force=True)
+    for i, evs in enumerate(windows):
+        svc.ingest_window("g", evs, t=float(i + 1))
+    events = [(e.kind, e.t, e.community, e.parents)
+              for e in svc.lifecycle_events("g")]
+    exts = range(int(g0.n_nodes) + 8)
+    members = [[svc.membership_at("g", x, t) for x in exts]
+               for t in (0.0, 1.0, 1.5, 2.0, 3.0, 4.0, 5.0)]
+    snaps = svc.timeline_snapshots("g")
+    state = svc.timelines.state()
+    svc.close()
+    return events, state, members, snaps, expected, int(g0.n_nodes)
+
+
+def frontend_timeline_step() -> dict:
+    """Phase 8.3: the planted script on the card and on the CPU: the
+    lifecycle events test_planted_lifecycle_end_to_end_sync asserts, and
+    the same events, tracker state and memberships on both."""
+    import numpy as np
+
+    (ev, (sa, sm), mem, snaps, expected, n0), wall, n, _ = timed_path(
+        lambda: planted_run("cuda"))
+    ev_c, (ca, cm), mem_c, _, _, _ = planted_run("cpu")
+    got = {s.t: sorted(k for k, t, _, _ in ev
+                       if t == s.t and k != "continuation")
+           for s in snaps if s.t > 0}
+    want = {float(i + 1): sorted(k) for i, k in enumerate(expected)}
+    m = {t: row for t, row in zip((0.0, 1.0, 1.5, 2.0, 3.0, 4.0, 5.0), mem)}
+    lifecycle = (got == want and m[1.5][3] != m[1.5][0]
+                 and m[2.0][3] == m[2.0][0] and m[3.0][3] != m[3.0][0]
+                 and m[3.0][2] is not None and m[4.0][2] is None
+                 and m[5.0][n0] is not None
+                 and all(s.n_disconnected == 0 for s in snaps))
+    same = (ev == ev_c and mem == mem_c and sm == cm and list(sa) == list(ca)
+            and all(np.array_equal(sa[k], ca[k]) for k in sa))
+    log(f"  8.3 timeline, planted script through ingest_window "
+        f"(compact_window=4): {len(snaps)} snapshots in {wall} s  events="
+        f"{got}  lifecycle as the test asserts={lifecycle}  card == CPU "
+        f"(events, state, memberships)={same}  segreduce launches={n}")
+    if not (lifecycle and same):
+        raise AssertionError("planted timeline on the card")
+    return {"front end timeline ingest_window (planted script)": n}
+
+
+REPLAY_RATES = (15.0, 30.0, 60.0, 120.0)
+
+
+def replay_config():
+    """The reference CLI's ``--replay`` settings (``serve_communities.py``
+    ``main_replay_async``, its defaults: batch 16, 25 ms, 12 pending a
+    tenant, 3 tenants, 30 % updates, 3 s, pool of 24)."""
+    from repro_torch.service import ReplayConfig, ServiceConfig
+
+    return (ReplayConfig(duration_s=3.0, n_tenants=3, update_frac=0.3,
+                         pool_size=24),
+            ServiceConfig(batch_size=16, max_delay_s=0.025,
+                          max_pending_per_tenant=12, telemetry_enabled=True,
+                          exporter_port=0))
+
+
+def frontend_replay_step(profile: bool) -> dict:
+    """Phase 8.4: ``sweep_rates`` over the rate ladder, then one replay at
+    60/s with a live ``/metrics`` scrape in the middle of its window (and
+    under ``--profile`` the device's busy share)."""
+    import asyncio
+    import dataclasses
+    import urllib.request
+
+    from repro_torch.service import AsyncCommunityService, sweep_rates
+    from repro_torch.service.replay import replay
+    from repro_torch.telemetry import metric_names, parse_prometheus
+
+    base, svc_cfg = replay_config()
+    rates = REPLAY_RATES
+    out, wall, n, _ = timed_path(lambda: sweep_rates(rates, base, svc_cfg,
+                                                     device="cuda"))
+    for rep in out["rates"]:
+        bd = rep.get("phase_breakdown", {})
+        log(f"  8.4 replay {rep['rate']}/s: the arrivals of a "
+            f"{base.duration_s} s schedule took {rep['window_s']} s "
+            f"({rep['offered'] / rep['window_s']}/s)  served "
+            f"{rep['served'] / rep['total_s']}/s  offered={rep['offered']} "
+            f"served={rep['served']} rejected={rep['rejected']} failed="
+            f"{rep['failed']} late={rep['late_arrivals']} goodput="
+            f"{rep['goodput']:.3f}  p50={rep['p50_ms']} ms  p99="
+            f"{rep['p99_ms']} ms  shares: " + "  ".join(
+                f"{k}={v:.4f}" for k, v in sorted(bd.items()))
+            + f"  window={rep['window_s']} s  total={rep['total_s']} s")
+    knee = out["knee_rate"]
+    # the harness's knee reads goodput and p99 alone; an arrival loop that
+    # cannot keep its schedule (late arrivals) offers less than the rate,
+    # so the first rate whose arrivals took over 10 % longer than their
+    # schedule is printed beside it
+    held = [r["rate"] for r in out["rates"]
+            if r["window_s"] > 1.1 * base.duration_s]
+    log(f"  8.4 sweep {list(rates)}: knee (find_knee)="
+        + (f"{knee}/s" if knee is not None
+           else f"not reached up to {max(rates)}/s")
+        + "  first rate whose arrivals ran over 10 % past their schedule="
+        + (f"{held[0]}/s" if held else "none")
+        + f"  ({wall} s, segreduce launches={n})")
+    if any(r["failed"] for r in out["rates"]) or \
+            not all(r["served"] for r in out["rates"]):
+        raise AssertionError("replay: failed or nothing served")
+
+    async def scraped():
+        cfg = dataclasses.replace(base, rate=60.0, duration_s=1.5)
+        async with AsyncCommunityService(svc_cfg, device="cuda") as svc:
+            url = svc.frontend.exporter.url
+            loop = asyncio.get_running_loop()
+
+            async def scrape():
+                # the window opens when replay() resets the metrics after
+                # seeding the pool as tenant "warmup"
+                m = svc.metrics
+                while "warmup" not in m.tenants:
+                    await asyncio.sleep(0.01)
+                while "warmup" in m.tenants:
+                    await asyncio.sleep(0.01)
+                await asyncio.sleep(cfg.duration_s / 2)
+                return await loop.run_in_executor(None, lambda: (
+                    urllib.request.urlopen(url, timeout=10).read()
+                    .decode()))
+
+            task = asyncio.ensure_future(asyncio.wait_for(scrape(), 120.0))
+            rep = await replay(svc, cfg)
+            return rep, await task, url
+
+    def go():
+        if not profile:
+            return asyncio.run(scraped()), None
+        import torch
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            res = asyncio.run(scraped())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in p.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        return res, (busy / 1e6, wall)
+
+    ((rep, body, url), busy), wall60, n60, _ = timed_path(go)
+    parsed = parse_prometheus(body)
+    names = metric_names(parsed)
+    served = sum(v for (nm, lk), v in parsed.items()
+                 if nm == "repro_requests_served_total")
+    log(f"  8.4 replay 60/s for 1.5 s with a live scrape of {url} "
+        f"mid-window: "
+        f"{len(parsed)} samples, {len(names)} families, requests served "
+        f"so far={served}; offered={rep['offered']} served={rep['served']}"
+        f"  p50={rep['p50_ms']} ms  p99={rep['p99_ms']} ms  ({wall60} s, "
+        f"segreduce launches={n60})")
+    if busy is not None:
+        log(f"    traced: device busy={busy[0]} s of {busy[1]} s wall "
+            f"({100 * busy[0] / busy[1]} %)")
+    if not {"repro_requests_served_total",
+            "repro_span_duration_seconds_bucket"} <= names or not served:
+        raise AssertionError("live scrape")
+    return {"front end replay sweep": n, "front end replay 60/s, scraped": n60}
+
+
+def frontend_chaos_step() -> dict:
+    """Phase 8.5: a sync service on a scripted clock serves 64 detects
+    with a fault plan (``engine.detect`` raises twice), ``retry``, a
+    breaker and the degraded tier; against the same requests without
+    faults."""
+    from repro_torch.resilience import (BreakerConfig, DegradedResult,
+                                        FaultPlan, FaultSpec, RetryPolicy)
+    from repro_torch.service import CommunityService, ServiceConfig
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    n_requests = 64
+    graphs = [frontend_graph(FRONTEND_FAMILIES[i % 3], 900 + i, "cuda")
+              for i in range(n_requests)]
+    head = 16
+
+    def serve(faults: bool):
+        clock = Clock()
+        kw = dict(batch_size=16, max_delay_s=0.025)
+        if faults:
+            kw.update(fault_plan=FaultPlan({"engine.detect": FaultSpec(
+                p=1.0, count=2)}), retry=RetryPolicy(max_attempts=1),
+                breaker=BreakerConfig(failure_threshold=2, cooldown_s=1.0),
+                degrade_enabled=True, degrade_modes=("lpa",))
+        svc = CommunityService(config=ServiceConfig(**kw), clock=clock,
+                               device="cuda")
+        futs = [svc.detect(f"c{i}", g) for i, g in enumerate(graphs[:head])]
+        svc.pump(force=True)
+        states = [svc.frontend.resilience.breaker_state(b)
+                  for b in svc.config.buckets]
+        clock.t += 1.5                    # past the breaker's cooldown
+        futs += [svc.detect(f"c{i}", g)
+                 for i, g in enumerate(graphs[head:], head)]
+        svc.drain()
+        return svc, [f.result() for f in futs], states
+
+    (clean_svc, clean, _), wall_c, n_c, _ = timed_path(lambda: serve(False))
+    (svc, got, states), wall, n, _ = timed_path(lambda: serve(True))
+    res = svc.frontend.resilience
+    degraded = [r for r in got if isinstance(r, DegradedResult)]
+    flagged = all(not r.guarantee and r.quality == "degraded"
+                  and r.mode == "lpa" for r in degraded)
+    equal = all(same_entry(a, b) for a, b in zip(got, clean)
+                if not isinstance(a, DegradedResult))
+    end = set(res.board.states().values())
+    log(f"  8.5 chaos: {n_requests} detects, engine.detect raising twice, "
+        f"retry once, breaker (2 failures, 1 s cooldown), lpa degraded "
+        f"tier: {len(degraded)} degraded (flagged={flagged}), the rest == "
+        f"the fault-free run's bits={equal}  injected="
+        f"{svc.frontend.config.fault_plan.injected['engine.detect']}  "
+        f"splits={res.n_batch_splits}  breaker after the faults={states}, "
+        f"at the end={sorted(end)}  {wall} s (fault-free {wall_c} s)  "
+        f"segreduce launches={n} (fault-free {n_c})")
+    if not (degraded and flagged and equal and end == {"closed"}):
+        raise AssertionError("chaos")
+    clean_svc.close()
+    svc.close()
+    return {"front end chaos (retry, breaker, lpa degraded tier)": n}
+
+
+def frontend_phase(engine_walls: dict, profile: bool) -> dict:
+    """Phase 8: the service front end on the card.  Returns the
+    segment-reduce launches by path."""
+    launches = {}
+    for name, step in (
+            ("8.1", frontend_sync_step),
+            ("8.1b", lambda: frontend_vs_engine_step(engine_walls)),
+            ("8.2", frontend_tiers_step),
+            ("8.3", frontend_timeline_step),
+            ("8.4", lambda: frontend_replay_step(profile)),
+            ("8.5", frontend_chaos_step)):
+        t0 = time.perf_counter()
+        launches.update(step())
+        log(f"  step {name}: {time.perf_counter() - t0} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=21,
@@ -1818,8 +2475,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after phase 4, run detect() once more under "
                     "torch.profiler and print device time by kernel; trace "
-                    "calls of each segsum, cumsum and spmm case of phase 5 "
-                    "and one engine batch a bucket of phase 6 too")
+                    "calls of each segsum, cumsum and spmm case of phase 5, "
+                    "one engine batch a bucket of phase 6 and phase 8's "
+                    "replay at 60/s too")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1905,7 +2563,8 @@ def main(argv=None) -> int:
     api_entries = api_phase(g, res.labels, profile=args.profile)
 
     log("phase 6: the batched engine and the store, on the card")
-    engine_launches, engine = engine_phase(profile=args.profile)
+    engine_launches, engine, engine_walls = engine_phase(
+        profile=args.profile)
     by_path.update(engine_launches)
 
     log("phase 7: the timeline, the checkpoint and the degraded tier, on "
@@ -1914,6 +2573,12 @@ def main(argv=None) -> int:
     by_path.update(timeline_phase(g, res, fast, churn, warm, args.scale))
     by_path.update(resilience_small_phase(engine))
     log(f"  phase 7: {time.perf_counter() - t0} s")
+
+    log("phase 8: the service front end, on the card")
+    t0 = time.perf_counter()
+    by_path.update(frontend_phase(engine_walls=engine_walls,
+                                  profile=args.profile))
+    log(f"  phase 8: {time.perf_counter() - t0} s")
 
     entry["launches"] = launches
     entry["launches_by_path"] = by_path

@@ -17,8 +17,8 @@
 * :mod:`repro_torch.resilience.manager`  — the front end's single handle
   on all of the above.
 
-The front end that installs them from its config comes with ROADMAP
-A.11.
+The front end (:class:`repro_torch.service.frontend.ServiceFrontend`)
+installs them from its ``ServiceConfig``.
 """
 from repro_torch.resilience.autockpt import AutoCheckpointer
 from repro_torch.resilience.breaker import (

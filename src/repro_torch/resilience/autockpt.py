@@ -4,8 +4,8 @@
 An :class:`AutoCheckpointer` snapshots a *holder*: any object with a
 ``.store`` and an optional ``.timelines``, as
 :func:`repro_torch.timeline.checkpoint.save_service_checkpoint` takes
-(the front end, which wires it from its config, comes with ROADMAP
-A.11).  It gives periodic/automatic checkpointing and write-back of
+(the front end wires one from ``ServiceConfig.autockpt_dir``).  It
+gives periodic/automatic checkpointing and write-back of
 evicted-but-warm partitions:
 
 * a background daemon thread snapshots the service — warm store entries

@@ -4,8 +4,8 @@ in both packages).
 
 A :class:`FaultPlan` is handed to the seams that consult it — never
 monkeypatched in — where a production deployment actually fails (the
-engine takes it as ``faults=``; the service's config installs it with the
-front end, ROADMAP A.11):
+engine takes it as ``faults=``; ``ServiceConfig.fault_plan`` installs it
+in the front end):
 
 ======================  =================================================
 seam                    where it fires

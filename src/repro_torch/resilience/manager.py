@@ -6,7 +6,8 @@ It reads seven fields off its ``config`` argument, any object that has
 them: ``fault_plan``, ``retry``, ``breaker``, ``degrade_enabled``,
 ``degrade_modes``, ``detect`` (the service's
 :class:`~repro_torch.core.api.DetectOptions`) and ``degrade_tenants``.
-The service's config record comes with the front end (ROADMAP A.11).
+The front end passes its
+:class:`~repro_torch.service.admission.ServiceConfig`.
 Every method has a zero-overhead fast path when the corresponding knob is
 off, so a service configured without resilience runs the exact
 pre-existing code path.

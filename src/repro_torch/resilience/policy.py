@@ -1,8 +1,8 @@
 """Retry / timeout / backoff policies for dispatch and commit seams (port
 of ``repro/resilience/policy.py``; host code).
 
-A :class:`RetryPolicy` is installed per service (by the front end,
-ROADMAP A.11) and wrapped around the two places the front end does real
+A :class:`RetryPolicy` is installed per service (``ServiceConfig.retry``)
+and wrapped around the two places the front end does real
 work: engine dispatch (fresh detects and warm updates) and
 store commits.  The policy bounds each attempt with a watchdog timeout
 (a hung dispatch raises :class:`DispatchTimeout` instead of blocking the

@@ -2,8 +2,12 @@
 ``repro/service/admission.py``; host Python, the reference's order of picks
 exactly).
 
-Two pieces:
+Three pieces:
 
+* :class:`ServiceConfig` — every service-layer knob in one dataclass
+  (engine, dispatch, admission, store eviction, telemetry, timelines,
+  resilience, tiers), read by the front end
+  (:mod:`repro_torch.service.frontend`).
 * bounded per-tenant queues — each tenant may hold at most
   ``max_pending_per_tenant`` undispatched requests across all buckets;
   overflow raises :class:`QueueFull` (explicit backpressure: the sync path
@@ -20,8 +24,14 @@ The controller is clock-injected and thread-safe: the async front end
 submits re-bucketed updates from its compute thread while the event loop
 collects batches.
 
-The reference's ``ServiceConfig`` is not here: its only reader is the
-front end (ROADMAP A.11), and it comes with it.
+The port's ``ServiceConfig`` has the reference's fields, defaults and
+validation messages, less the reference's ``sub_batch`` (the engine is a
+loop over the batch, with no tile to size) and its deprecated flat
+detection keywords (``louvain``, ``dense_max_nv``, ``dense_small_nv``,
+``dense_min_density``, ``seg_impl``, ``seg_block_m``) and their read-back
+properties: passing any of them is Python's own ``TypeError``, and callers
+pass ``detect=DetectOptions(...)``.  Where the service runs is not a
+field: the front end takes a ``device`` keyword.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from repro_torch.core.api import DetectOptions
+from repro_torch.core.portfolio import contract_for
 from repro_torch.graph.container import Graph
 from repro_torch.service.buckets import Bucket, DEFAULT_BUCKETS
 
@@ -45,6 +57,238 @@ DEFAULT_TENANT = "default"
 class QueueFull(Exception):
     """A tenant's queue is at its bound: reject (sync) or await a slot
     (async front end with ``block=True``)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """All service-layer configuration in one place.
+
+    Engine/dispatch:
+      detect:      the :class:`repro_torch.core.DetectOptions` record —
+                   default tier, algorithm config (``detect.louvain``),
+                   scan strategy and dense crossover.  Engine and store
+                   keys derive from this one hashable record
+                   (:meth:`DetectOptions.cache_key`).
+      buckets:     static (n_cap, m_cap) admission ladder (sorted).
+      batch_size:  dispatch width per bucket batch.
+      max_delay_s: tail-latency bound — a bucket flushes a partial batch
+                   once its oldest request has waited this long.
+
+    Warm updates (edge weight-deltas AND vertex additions/removals — one
+    :class:`repro_torch.core.dynamic.GraphUpdate` batch type):
+      update_batch_size: >1 queues update batches per bucket and
+                   dispatches them through the engine's batched warm path
+                   (:meth:`BatchedLouvainEngine.update_batch`, the update
+                   analogue of detect batching); 1 (default) keeps the
+                   immediate per-call path.  Both paths share the host-side
+                   prepare fold, so vertex-id compaction and deletion
+                   clamping are identical either way.
+      update_max_delay_s: flush bound for a partial update batch; None
+                   inherits ``max_delay_s``.
+
+    Admission:
+      max_pending_per_tenant: queue bound per tenant (backpressure).
+      tenant_weights: (tenant, weight) pairs for DRR fairness; unlisted
+                      tenants weigh 1.0.
+
+    Store eviction:
+      store_max_entries: LRU cap on resident entries (None = unbounded).
+      store_ttl_s:       entry time-to-live (None = no expiry).
+
+    Telemetry (:mod:`repro_torch.telemetry`):
+      telemetry_enabled: attach the in-memory aggregation sink (per-phase
+                   span histograms, algorithm counters, queue-depth gauges
+                   — what the exporter scrapes).  False leaves the hub
+                   empty: request traces still populate
+                   ``DetectionFuture.trace``, but no sink work runs on the
+                   serving path.
+      telemetry_jsonl: path for a JSONL event-log sink (None = off).
+      exporter_port: serve Prometheus text format on
+                   ``http://127.0.0.1:<port>/metrics`` (0 = ephemeral
+                   port, read it off ``frontend.exporter.port``; None =
+                   no HTTP thread).  Requires ``telemetry_enabled``.
+      profile_dir: trace every engine dispatch with ``torch.profiler``
+                   into this directory (TensorBoard format; expensive,
+                   None = off).
+
+    Temporal tracking (:mod:`repro_torch.timeline`):
+      timeline_enabled: attach a :class:`repro_torch.timeline.tracker.
+                   TimelineManager` to the store's commit hook — every
+                   committed partition becomes a snapshot with persistent
+                   community ids + lifecycle events, queryable via
+                   ``membership_at``/``community_timeline``/
+                   ``lifecycle_events`` and fed by ``ingest_window``.
+      timeline_jaccard_min: weighted-Jaccard floor for the
+                   snapshot-to-snapshot matcher (below it communities
+                   never relate).
+      timeline_weight_by_degree: weight matcher member sets by weighted
+                   degree instead of uniformly.
+      timeline_max_snapshots / timeline_max_events / timeline_max_rows /
+      timeline_max_communities: bounded-memory timeline retention
+                   (per-graph snapshot deque, global lifecycle log,
+                   per-community row deque, tracked-community cap).
+      compact_window: > 0 defers vertex-removal compaction in the store —
+                   removals tombstone immediately (results stay correct)
+                   and the O(m log m) remap is paid once per
+                   ``compact_window`` removals (see
+                   :class:`repro_torch.service.store.ResultStore`).  With
+                   deferral on, a capacity overflow is surfaced to the
+                   caller instead of triggering the re-bucketing rebuild.
+                   0 = immediate compaction.
+    """
+
+    detect: DetectOptions = dataclasses.field(default_factory=DetectOptions)
+    buckets: Tuple[Bucket, ...] = DEFAULT_BUCKETS
+    batch_size: int = 32
+    max_delay_s: float = 0.05
+    update_batch_size: int = 1
+    update_max_delay_s: Optional[float] = None
+    max_pending_per_tenant: int = 64
+    tenant_weights: Tuple[Tuple[str, float], ...] = ()
+    store_max_entries: Optional[int] = None
+    store_ttl_s: Optional[float] = None
+    telemetry_enabled: bool = True
+    telemetry_jsonl: Optional[str] = None
+    exporter_port: Optional[int] = None
+    profile_dir: Optional[str] = None
+    timeline_enabled: bool = False
+    timeline_jaccard_min: float = 0.1
+    timeline_weight_by_degree: bool = False
+    timeline_max_snapshots: int = 64
+    timeline_max_events: int = 4096
+    timeline_max_rows: int = 256
+    timeline_max_communities: int = 4096
+    compact_window: int = 0
+    # Resilience (:mod:`repro_torch.resilience`) — all off by default, so
+    # an unconfigured service runs the plain code paths:
+    #   fault_plan:      deterministic chaos injected at the real seams
+    #                    (engine dispatch raise/hang, store commit,
+    #                    checkpoint IO, telemetry sink, transient
+    #                    capacity); None = no injection.
+    #   retry:           RetryPolicy wrapped around engine dispatch and
+    #                    store commits (attempts, backoff + jitter,
+    #                    watchdog timeout, wall-clock budget honoring
+    #                    admission deadlines); None = single attempt,
+    #                    no watchdog thread.
+    #   breaker:         per-bucket circuit BreakerConfig; an OPEN bucket
+    #                    sheds to the degraded tier (or fails fast).
+    #   degrade_enabled: serve stale/LPA degraded results (flagged, NOT
+    #                    carrying the zero-disconnected guarantee) when a
+    #                    batch exhausts retries or its breaker is open.
+    #   degrade_modes:   order of degraded tiers to try ("stale", "lpa").
+    #   degrade_tenants: tenants opted in (None = all tenants).
+    #   autockpt_dir:    enable background automatic checkpointing into
+    #                    this directory (periodic + dirty-threshold
+    #                    snapshots, evicted-warm write-back, startup
+    #                    recovery); None = caller-driven only.
+    fault_plan: Optional[object] = None
+    retry: Optional[object] = None
+    breaker: Optional[object] = None
+    degrade_enabled: bool = False
+    degrade_modes: Tuple[str, ...] = ("stale", "lpa")
+    degrade_tenants: Optional[Tuple[str, ...]] = None
+    autockpt_dir: Optional[str] = None
+    autockpt_period_s: float = 30.0
+    autockpt_dirty: int = 0
+    autockpt_keep: int = 3
+    autockpt_writeback: int = 64
+    autockpt_recover: bool = True
+    # SLO tiers (core/portfolio.py) — which portfolio tier serves a
+    # request.  Per-request ``algorithm=`` wins; else the tenant's
+    # declared tier (``tenant_tiers``); else, when the request carries a
+    # deadline, the first ``deadline_tiers`` (tier, bound_s) pair with
+    # deadline <= bound (pairs sorted ascending: tight deadlines buy the
+    # cheap tier); else ``detect.algorithm``.  ``warm()`` dispatches one
+    # filler graph for every tier reachable through this config
+    # (``serve_algorithms``).
+    tenant_tiers: Tuple[Tuple[str, str], ...] = ()
+    deadline_tiers: Tuple[Tuple[str, float], ...] = ()
+
+    def __post_init__(self):
+        if self.batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
+        if self.update_batch_size < 1:
+            raise ValueError(f"update_batch_size must be >= 1, got "
+                             f"{self.update_batch_size}")
+        if self.max_pending_per_tenant < 1:
+            raise ValueError("max_pending_per_tenant must be >= 1, got "
+                             f"{self.max_pending_per_tenant}")
+        for tenant, weight in self.tenant_weights:
+            if weight <= 0:
+                raise ValueError(
+                    f"tenant {tenant!r} weight must be > 0, got {weight}")
+        if self.exporter_port is not None and not self.telemetry_enabled:
+            raise ValueError("exporter_port requires telemetry_enabled "
+                             "(the exporter scrapes the in-memory sink)")
+        if self.compact_window < 0:
+            raise ValueError(
+                f"compact_window must be >= 0, got {self.compact_window}")
+        if not (0.0 < self.timeline_jaccard_min <= 1.0):
+            raise ValueError("timeline_jaccard_min must be in (0, 1], got "
+                             f"{self.timeline_jaccard_min}")
+        for knob in ("timeline_max_snapshots", "timeline_max_events",
+                     "timeline_max_rows", "timeline_max_communities"):
+            if getattr(self, knob) < 1:
+                raise ValueError(
+                    f"{knob} must be >= 1, got {getattr(self, knob)}")
+        bad = [m for m in self.degrade_modes if m not in ("stale", "lpa")]
+        if bad:
+            raise ValueError(
+                f"degrade_modes must be drawn from ('stale', 'lpa'), got "
+                f"{bad}")
+        if not self.degrade_modes:
+            raise ValueError("degrade_modes must not be empty")
+        if self.autockpt_period_s <= 0:
+            raise ValueError(
+                f"autockpt_period_s must be > 0, got {self.autockpt_period_s}")
+        if self.autockpt_dirty < 0:
+            raise ValueError(
+                f"autockpt_dirty must be >= 0, got {self.autockpt_dirty}")
+        if self.autockpt_keep < 1:
+            raise ValueError(
+                f"autockpt_keep must be >= 1, got {self.autockpt_keep}")
+        if self.autockpt_writeback < 0:
+            raise ValueError(
+                f"autockpt_writeback must be >= 0, got "
+                f"{self.autockpt_writeback}")
+        for tenant, tier in self.tenant_tiers:
+            contract_for(tier)  # raises on unknown tier names
+        prev = 0.0
+        for tier, bound in self.deadline_tiers:
+            contract_for(tier)
+            if bound <= prev:
+                raise ValueError(
+                    "deadline_tiers bounds must be > 0 and strictly "
+                    f"ascending, got {self.deadline_tiers}")
+            prev = bound
+        object.__setattr__(self, "buckets", tuple(sorted(self.buckets)))
+
+    # -- tier selection ----------------------------------------------------
+    def tier_for(self, tenant: Optional[str] = None,
+                 deadline_s: Optional[float] = None,
+                 algorithm: Optional[str] = None) -> str:
+        """Resolve the portfolio tier for one request: explicit
+        ``algorithm`` > tenant pin > deadline auto-select > default."""
+        if algorithm is not None:
+            contract_for(algorithm)
+            return algorithm
+        for t, tier in self.tenant_tiers:
+            if t == tenant:
+                return tier
+        if deadline_s is not None:
+            for tier, bound in self.deadline_tiers:
+                if deadline_s <= bound:
+                    return tier
+        return self.detect.algorithm
+
+    @property
+    def serve_algorithms(self) -> Tuple[str, ...]:
+        """Every tier reachable through this config (ordered, deduped) —
+        what the engine warms at ``warm()``."""
+        tiers = [self.detect.algorithm]
+        tiers += [tier for _, tier in self.tenant_tiers]
+        tiers += [tier for tier, _ in self.deadline_tiers]
+        return tuple(dict.fromkeys(tiers))
 
 
 @dataclasses.dataclass

@@ -89,7 +89,7 @@ class ServiceMetrics:
         self.n_rebucketed = 0
         self.n_rejected = 0
         self.n_failed = 0
-        self.n_update_batches = 0        # vmapped warm-path dispatches
+        self.n_update_batches = 0        # batched warm-path dispatches
         self.n_updates_batched = 0       # graphs served via update batches
         self.n_deletions = 0             # directed edges removed by updates
         self.n_vertex_added = 0          # vertices claimed by updates

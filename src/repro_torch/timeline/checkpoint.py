@@ -4,7 +4,8 @@
 Persists the temporal-tracking state of a *holder*: any object with a
 ``.store`` (a :class:`repro_torch.service.store.ResultStore`) and an
 optional ``.timelines`` (a :class:`repro_torch.timeline.tracker.
-TimelineManager`) — the service front end (ROADMAP A.11) is one.  Every
+TimelineManager`) — the service front end
+(:class:`repro_torch.service.frontend.ServiceFrontend`) is one.  Every
 resident :class:`~repro_torch.service.store.StoreEntry` (graph arrays,
 membership, deferred tombstones, version) and the manager's id maps,
 matcher state, snapshots, community timelines and lifecycle events go

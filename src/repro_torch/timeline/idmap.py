@@ -188,7 +188,7 @@ def compose_batch_maps(n0: int, batches) -> Tuple[np.ndarray, int]:
     then ``add`` claims the next ids.  Returns ``(id_map, n_final)``
     where ``id_map`` is int64[n0] old->final internal (-1 removed) —
     what :meth:`ExternalIdMap.apply` needs to track a re-bucketing
-    rebuild (the front end's rebuild, ROADMAP A.11), which
+    rebuild (the front end's ``_graph_with_updates``), which
     replays exactly these semantics.
     """
     cur = np.arange(int(n0), dtype=np.int64)

@@ -28,8 +28,8 @@ bounded deques roll over.
 
 :func:`translate_window` + :class:`WindowedIngest` are the ingestion
 side: they fold a window of external-id graph events — any records with
-``t``, ``kind``, ``u``, ``v`` and ``w``, such as the reference's
-``GraphEvent`` (the port's event streams come with ROADMAP A.13) — into
+``t``, ``kind``, ``u``, ``v`` and ``w``, such as
+:class:`repro_torch.data.streams.GraphEvent` or the reference's — into
 ONE :class:`repro_torch.core.dynamic.GraphUpdate` in the service's
 internal id space, mirroring the compaction contract (and the store's
 deferred-compaction flush rule) deterministically so client and service
@@ -619,8 +619,8 @@ def translate_window(events, *, idmap: ExternalIdMap, entry,
 
 class WindowedIngest:
     """Time-window batcher over a front end's ``ingest_window(graph_id,
-    events, t=, tenant=)`` (any object with that method; the port's front
-    end comes with ROADMAP A.11).
+    events, t=, tenant=)`` (any object with that method, such as
+    :class:`repro_torch.service.frontend.ServiceFrontend`).
 
     Feed it a nondecreasing-``t`` stream of graph events; whenever an
     event crosses the current window boundary the buffered window commits

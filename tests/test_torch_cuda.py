@@ -907,3 +907,108 @@ def test_timeline_state_card_equals_cpu(cuda, wbd):
     for k in aa:
         assert aa[k].dtype == ba[k].dtype and np.array_equal(aa[k], ba[k]), k
     assert card.timelines.n_idmap_resets == 0
+
+
+# ---------------------------------------------------------------------------
+# the front end (ROADMAP A.11): the sync adapter, the async service and
+# the timeline's ingest, on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _mixed_requests():
+    """Ego-nets in Bucket(64, 512) and SBM graphs in Bucket(256, 2048),
+    then seeded edge updates on two of them."""
+    small = [sbm_graph(n_nodes=30, n_blocks=3, p_in=0.4, p_out=0.04,
+                       seed=s, device="cpu")[0] for s in range(4)]
+    big = [sbm_graph(n_nodes=100, n_blocks=4, p_in=0.2, p_out=0.02,
+                     seed=s, device="cpu")[0] for s in range(2)]
+    return small + big
+
+
+def _serve_mixed(device, update_batch_size):
+    from repro_torch.service import Bucket, CommunityService, ServiceConfig
+
+    cfg = ServiceConfig(buckets=(Bucket(64, 512), Bucket(64, 2048),
+                                 Bucket(256, 2048)),
+                        batch_size=4, max_delay_s=10.0,
+                        update_batch_size=update_batch_size)
+    svc = CommunityService(config=cfg, device=device)
+    for i, g in enumerate(_mixed_requests()):
+        svc.submit_detect(f"g{i}", g, tenant=f"t{i % 2}")
+    assert svc.drain() == 6
+    rng = np.random.default_rng(4)
+    for i in (0, 4):
+        n = int(svc.result(f"g{i}").graph.n_nodes)
+        u, v = rng.integers(0, n, 4), rng.integers(0, n, 4)
+        keep = u != v
+        svc.submit_update(f"g{i}", (u[keep], v[keep],
+                                    np.ones(int(keep.sum()), np.float32)))
+    svc.drain()
+    return svc
+
+
+@pytest.mark.parametrize("update_batch_size", [1, 4])
+def test_service_mixed_card_equals_cpu(cuda, update_batch_size):
+    card = _serve_mixed(cuda, update_batch_size)
+    cpu = _serve_mixed("cpu", update_batch_size)
+    assert card.frontend.device.type == "cuda"
+    for i in range(6):
+        a, b = card.result(f"g{i}"), cpu.result(f"g{i}")
+        assert a.graph.device.type == "cuda"
+        _same_entry(a, b)
+        assert a.n_disconnected == 0
+    assert card.metrics.n_detect == cpu.metrics.n_detect == 6
+    assert card.metrics.n_update == cpu.metrics.n_update == 2
+
+
+def test_async_service_on_card_resolves_every_future(cuda):
+    import asyncio
+
+    from repro_torch.service import AsyncCommunityService, ServiceConfig
+
+    graphs = _mixed_requests()
+
+    async def go():
+        cfg = ServiceConfig(batch_size=4, max_delay_s=0.01,
+                            max_pending_per_tenant=4)
+        async with AsyncCommunityService(cfg, device=cuda) as svc:
+            futs = [await svc.submit_detect(f"g{i}", g, tenant=f"t{i % 3}")
+                    for i, g in enumerate(graphs)]
+            return await asyncio.gather(*futs)
+
+    entries = asyncio.run(go())
+    for g, e in zip(graphs, entries):
+        assert e.graph.device.type == "cuda" and e.n_disconnected == 0
+        d = detect(e.graph, device="cpu")
+        np.testing.assert_array_equal(e.C, d.labels.numpy())
+        assert e.q == d.modularity
+
+
+def test_ingest_window_planted_card_equals_cpu(cuda):
+    from repro_torch.data import planted_timeline_script
+    from repro_torch.service import CommunityService, ServiceConfig
+
+    out = []
+    for device in (cuda, "cpu"):
+        g0, windows, expected = planted_timeline_script(device=device)
+        svc = CommunityService(config=ServiceConfig(
+            timeline_enabled=True, telemetry_enabled=False), device=device)
+        svc.frontend.set_snapshot_time("g", 0.0)
+        svc.submit_detect("g", g0)
+        svc.pump(force=True)
+        for i, evs in enumerate(windows):
+            svc.ingest_window("g", evs, t=float(i + 1))
+        events = [(e.kind, e.t, e.community, e.parents)
+                  for e in svc.lifecycle_events("g")]
+        got = sorted((e.t, e.kind) for e in svc.lifecycle_events("g")
+                     if e.kind != "continuation" and e.t > 0)
+        assert got == [(float(i + 1), k) for i, ks in enumerate(expected)
+                       for k in ks]
+        out.append((events, svc.timelines.state(),
+                    svc.store.get("g")))
+        svc.close()
+    (ea, (aa, am), xa), (eb, (ba, bm), xb) = out
+    assert ea == eb and am == bm
+    for k in aa:
+        assert np.array_equal(aa[k], ba[k]), k
+    assert xa.graph.device.type == "cuda"
+    _same_entry(xa, xb)

@@ -292,8 +292,12 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "for n in ('lpa', 'dynamic'):\n"
         "    assert 'repro_torch.core.' + n in names, names\n"
-        "for n in ('buckets', 'engine', 'store', 'admission', 'metrics'):\n"
+        "for n in ('buckets', 'engine', 'store', 'admission', 'metrics',\n"
+        "          'frontend', 'service', 'replay'):\n"
         "    assert 'repro_torch.service.' + n in names, names\n"
+        "assert 'repro_torch.data.streams' in names, names\n"
+        "from repro_torch.service import (AsyncCommunityService,\n"
+        "    CommunityService, ServiceConfig, ServiceFrontend)\n"
         "for n in ('histogram', 'spans', 'sinks', 'prometheus'):\n"
         "    assert 'repro_torch.telemetry.' + n in names, names\n"
         "assert len(names) >= 30, names\n"

@@ -190,3 +190,86 @@ def test_phase_seconds_of_each_tier():
                      device="cpu", phase_seconds=phases)
         assert set(phases) == keys, algorithm
         assert all(v >= 0.0 for v in phases.values())
+
+
+# ---------------------------------------------------------------------------
+# the tiers through the front end (the service cases of tests/test_portfolio.py)
+# ---------------------------------------------------------------------------
+
+import asyncio  # noqa: E402
+
+from _torch_service import (  # noqa: E402
+    FakeClock, as_input, config, ego, q_is_detect, same_entry, sync_service,
+)
+
+import repro_torch.service as tservice  # noqa: E402
+
+TIERS = ("fast", "standard", "max-quality")
+
+
+def test_service_sync_tiers_end_to_end():
+    def run(port):
+        svc = sync_service(port, clock=FakeClock(), batch_size=4,
+                           max_delay_s=10.0)
+        g = as_input(port, ego(5))
+        for a in TIERS:
+            svc.submit_detect(f"g-{a}", g, algorithm=a)
+        assert svc.drain() == 3
+        return svc, {a: svc.result(f"g-{a}") for a in TIERS}
+
+    (svc, entries), (_, ref) = run(True), run(False)
+    for a, e in entries.items():
+        assert e.algorithm == a
+        assert e.cache_key == svc.frontend.store.options.result_key(
+            algorithm=a)
+        same_entry(e, ref[a])
+        q_is_detect(e)
+    assert entries["standard"].n_disconnected == 0
+    assert entries["max-quality"].n_disconnected == 0
+    assert entries["max-quality"].q >= entries["standard"].q - 1e-9
+
+
+def test_async_tenant_tier_routing():
+    async def go():
+        cfg = config(True, batch_size=2, max_delay_s=0.01,
+                     tenant_tiers=(("cheap", "fast"),))
+        async with tservice.AsyncCommunityService(cfg,
+                                                  device="cpu") as svc:
+            futs = [await svc.submit_detect(f"c{i}", as_input(True, ego(i)),
+                                            tenant="cheap")
+                    for i in range(2)]
+            futs += [await svc.submit_detect("pin", as_input(True, ego(9)),
+                                             algorithm="max-quality")]
+            entries = await asyncio.gather(*futs)
+            assert [e.algorithm for e in entries] == \
+                ["fast", "fast", "max-quality"]
+            assert entries[2].n_disconnected == 0
+            assert svc.config.serve_algorithms == ("standard", "fast")
+            return entries
+
+    for e in asyncio.run(go()):
+        q_is_detect(e)
+
+
+def test_frontend_redetects_after_cross_tier_mismatch():
+    def run(port):
+        svc = sync_service(port, clock=FakeClock(), batch_size=4,
+                           max_delay_s=10.0)
+        svc.submit_detect("gid", as_input(port, ego(10)), algorithm="fast")
+        assert svc.drain() == 1
+        assert svc.result("gid").algorithm == "fast"
+        n = int(svc.result("gid").graph.n_nodes)
+        upd = (np.array([0, 1]), np.array([2, n - 1]),
+               np.ones(2, np.float32))
+        assert not svc.submit_update("gid", upd)
+        svc.drain()
+        e = svc.result("gid")
+        assert e is not None and e.algorithm == "standard"
+        assert e.n_disconnected == 0
+        assert e.cache_key == svc.frontend.store.options.result_key()
+        return e, svc.metrics.n_rebucketed
+
+    (et, nt), (ej, nj) = run(True), run(False)
+    same_entry(et, ej)
+    q_is_detect(et)
+    assert nt == nj == 1

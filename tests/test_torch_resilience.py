@@ -13,10 +13,16 @@ held against the JAX package's ``repro.resilience``, on the CPU.
   and recovery that skips a snapshot the ``checkpoint.io`` seam tore.
 * The engine's fault seams under ``run_with_policy``.
 
-Time comes from injected clocks; a real sleep stays under 0.2 s.  The
-front-end cases (deadline fast-fail, poison batches split in half, the
-breaker shedding a bucket, tenant opt-in, startup recovery through the
-service config) wait for the front end (A.11).
+* The front-end cases, each through both packages' ``ServiceFrontend``
+  built from a ``ServiceConfig``: a degraded result flagged, deadline
+  fast-fail at submit and at compose, a poison graph failing alone after
+  its batch is split in half, the breaker shedding a bucket to the stale
+  tier and recovering, tenant opt-in, and the auto-checkpointer from the
+  config (the dirty threshold, write-back of evicted entries, startup
+  recovery past a torn snapshot): the same outcomes, counters and
+  partitions as the reference.
+
+Time comes from injected clocks; a real sleep stays under 0.2 s.
 """
 import os
 import random
@@ -647,3 +653,342 @@ def test_engine_hang_trips_the_watchdog():
             time.perf_counter() < deadline:
         time.sleep(0.01)
     assert plan.injected["engine.detect"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the front-end cases, through each package's ServiceFrontend
+# ---------------------------------------------------------------------------
+
+from _torch_service import as_input, frontend  # noqa: E402
+from _torch_service import ego as _raw_ego  # noqa: E402
+
+F_BUCKETS = ((64, 512),)
+
+
+def _fe(port, clock=None, **kw):
+    """The reference resilience tests' front end: one bucket, batches of 4,
+    no delay."""
+    kw.setdefault("buckets", F_BUCKETS)
+    kw.setdefault("batch_size", 4)
+    kw.setdefault("max_delay_s", 0.0)
+    return frontend(port, clock=clock, **kw)
+
+
+def _R(port):
+    return tr if port else jr
+
+
+def test_degraded_results_are_flagged():
+    fe = _fe(True)
+    try:
+        fut = fe.submit_detect("g", as_input(True, _raw_ego(3)))
+        fe.drain()
+        entry = fut.result(timeout=60)
+    finally:
+        fe.close()
+    st = stale_result("g", entry, now=entry.t_stored + 7.5)
+    assert st.stale and st.staleness_s == pytest.approx(7.5)
+    assert st.quality == "stale" and st.guarantee is False
+    assert np.array_equal(st.C, np.asarray(entry.C))
+    assert st.contract is not None and st.contract.tier == "standard"
+    lp = lpa_result("g", _port(ring_of_cliques(n_cliques=4, clique_size=5)),
+                    device="cpu")
+    assert lp.mode == "lpa" and not lp.stale
+    assert lp.quality == "degraded" and lp.guarantee is False
+    assert lp.n_communities >= 1 and lp.n_disconnected is not None
+    assert lp.contract is not None and lp.contract.tier == "fast"
+    assert not lp.contract.zero_disconnected
+
+
+def test_deadline_fast_fail_at_submit():
+    for port in (True, False):
+        fe = _fe(port)
+        try:
+            with pytest.raises(_R(port).DeadlineExceeded):
+                fe.submit_detect("late", as_input(port, _raw_ego(1)),
+                                 deadline_s=0.0)
+            with pytest.raises(_R(port).DeadlineExceeded):
+                fe.submit_detect("later", as_input(port, _raw_ego(1)),
+                                 deadline_s=-1.0)
+            assert fe.metrics.n_deadline_rejects == 2
+            assert fe.pending() == 0
+        finally:
+            fe.close()
+
+
+def test_deadline_fast_fail_at_compose():
+    out = []
+    for port in (True, False):
+        clock = FakeClock(t=100.0)
+        fe = _fe(port, clock=clock)
+        try:
+            fut = fe.submit_detect("d", as_input(port, _raw_ego(2)),
+                                   deadline_s=0.5)
+            live = fe.submit_detect("live", as_input(port, _raw_ego(3)))
+            clock.advance(1.0)
+            fe.drain()
+            assert isinstance(fut.exception(timeout=5),
+                              _R(port).DeadlineExceeded)
+            assert fe.metrics.n_deadline_rejects == 1
+            out.append(live.result(timeout=60))
+        finally:
+            fe.close()
+    assert isinstance(out[0], tr_store_entry())
+    np.testing.assert_array_equal(out[0].C, np.asarray(out[1].C))
+
+
+def tr_store_entry():
+    from repro_torch.service import StoreEntry
+    return StoreEntry
+
+
+def _poison_run(port):
+    graphs = {f"t{i}": _raw_ego(20 + i) for i in range(3)}
+    fe = _fe(port)
+    try:
+        futs = {gid: fe.submit_detect(gid, as_input(port, g), tenant=gid)
+                for gid, g in graphs.items()}
+        fe.drain()
+        healthy = {gid: np.asarray(f.result(timeout=60).C).copy()
+                   for gid, f in futs.items()}
+    finally:
+        fe.close()
+    R = _R(port)
+    plan = R.FaultPlan({"engine.detect": R.FaultSpec(
+        p=1.0, count=99, graph_ids=("poison",))})
+    fe = _fe(port, fault_plan=plan,
+             retry=R.RetryPolicy(max_attempts=2, backoff_s=0.0))
+    try:
+        futs = {gid: fe.submit_detect(gid, as_input(port, g), tenant=gid)
+                for gid, g in graphs.items()}
+        bad = fe.submit_detect("poison", as_input(port, _raw_ego(99)),
+                               tenant="chaos-tenant")
+        fe.drain()
+        assert isinstance(bad.exception(timeout=5), R.FaultError)
+        got = {}
+        for gid, f in futs.items():
+            e = f.result(timeout=60)
+            np.testing.assert_array_equal(np.asarray(e.C), healthy[gid])
+            assert e.n_disconnected == 0
+            got[gid] = np.asarray(e.C)
+        assert fe.resilience.n_batch_splits >= 1
+        assert plan.injected["engine.detect"] >= 1
+        assert fe.store.get("poison") is None
+        return got, (fe.resilience.n_batch_splits, fe.resilience.n_retries,
+                     dict(plan.injected), fe.metrics.n_failed)
+    finally:
+        fe.close()
+
+
+def test_poison_graph_fails_alone_after_split():
+    (gt, ct), (gj, cj) = _poison_run(True), _poison_run(False)
+    assert ct == cj
+    for gid in gt:
+        np.testing.assert_array_equal(gt[gid], gj[gid])
+
+
+def _breaker_run(port):
+    R = _R(port)
+    clock = FakeClock(t=10.0)
+    plan = R.FaultPlan({"engine.detect": R.FaultSpec(p=1.0, count=2,
+                                                     skip=1)})
+    fe = _fe(port, clock=clock, fault_plan=plan,
+             retry=R.RetryPolicy(max_attempts=1),
+             breaker=R.BreakerConfig(failure_threshold=2, cooldown_s=0.2),
+             degrade_enabled=True, degrade_modes=("stale",))
+    g = as_input(port, _raw_ego(7))
+    states = []
+    try:
+        f0 = fe.submit_detect("g", g)
+        fe.drain()
+        e0 = f0.result(timeout=60)
+        for _ in range(2):
+            fi = fe.submit_detect("g", g)
+            fe.drain()
+            ri = fi.result(timeout=60)
+            assert isinstance(ri, R.DegradedResult) and ri.mode == "stale"
+            states.append(sorted(fe.resilience.board.states().values()))
+        assert "open" in fe.resilience.board.states().values()
+        clock.advance(0.3)                # past cooldown; faults exhausted
+        f1 = fe.submit_detect("g", g)
+        fe.drain()
+        e1 = f1.result(timeout=60)
+        np.testing.assert_array_equal(np.asarray(e1.C), np.asarray(e0.C))
+        states.append(sorted(fe.resilience.board.states().values()))
+        assert set(fe.resilience.board.states().values()) == {"closed"}
+        assert fe.metrics.n_degraded == 2
+        return e1, states, (e0.version, e1.version)
+    finally:
+        fe.close()
+
+
+def test_breaker_open_sheds_to_stale_then_recovers():
+    (et, st, vt), (ej, sj, vj) = _breaker_run(True), _breaker_run(False)
+    assert st == sj and vt == vj
+    np.testing.assert_array_equal(et.C, np.asarray(ej.C))
+    assert isinstance(et, tr_store_entry())
+
+
+def test_degrade_requires_tenant_opt_in():
+    for port in (True, False):
+        R = _R(port)
+        plan = R.FaultPlan({"engine.detect": R.FaultSpec(p=1.0)})
+        fe = _fe(port, fault_plan=plan, retry=R.RetryPolicy(max_attempts=1),
+                 degrade_enabled=True, degrade_modes=("lpa",),
+                 degrade_tenants=("premium",))
+        try:
+            fa = fe.submit_detect("a", as_input(port, _raw_ego(4)),
+                                  tenant="premium")
+            fb = fe.submit_detect("b", as_input(port, _raw_ego(5)),
+                                  tenant="strict")
+            fe.drain()
+            ra = fa.result(timeout=60)
+            assert isinstance(ra, R.DegradedResult) and ra.mode == "lpa"
+            assert isinstance(fb.exception(timeout=5), R.FaultError)
+            if port:
+                lpa_t = ra
+            else:
+                np.testing.assert_array_equal(lpa_t.C, np.asarray(ra.C))
+                assert lpa_t.n_communities == int(ra.n_communities)
+        finally:
+            fe.close()
+
+
+def _truncate_npz(ckpt_dir, step):
+    path = os.path.join(ckpt_dir, f"step-{step:010d}", "arrays.npz")
+    with open(path, "rb") as f:
+        raw = f.read()
+    with open(path, "wb") as f:
+        f.write(raw[: len(raw) // 2])
+
+
+def test_recover_falls_back_to_previous_good_snapshot(tmp_path):
+    ckdir = str(tmp_path / "auto")
+    fe = _fe(True, autockpt_dir=ckdir, autockpt_period_s=999.0,
+             autockpt_recover=False)
+    try:
+        f = fe.submit_detect("g", as_input(True, _raw_ego(11)))
+        fe.drain()
+        e0 = f.result(timeout=60)
+        good = fe.autockpt.snapshot(force=True)
+        fu = fe.submit_update("g", _upd(e0, 3))
+        fe.drain()
+        fu.result(timeout=60)
+        torn = fe.autockpt.snapshot(force=True)
+        _truncate_npz(ckdir, torn)
+        fe.autockpt.close(flush=False)
+    finally:
+        fe.telemetry.close()
+
+    fe2 = _fe(True, autockpt_dir=ckdir, autockpt_period_s=999.0)
+    try:
+        assert fe2.restored_step == good
+        assert fe2.autockpt.n_corrupt_skipped == 1
+        ent = fe2.store.get("g")
+        assert ent is not None and ent.version == e0.version
+        np.testing.assert_array_equal(ent.C, e0.C)
+        assert ent.graph.device.type == "cpu"
+    finally:
+        fe2.close()                   # a final flush snapshot of it
+    # the reference recovers the port's newest snapshot, the same entry
+    fe3 = _fe(False, autockpt_dir=ckdir, autockpt_period_s=999.0)
+    try:
+        assert fe3.restored_step == fe2.autockpt.last_step > torn
+        ej = fe3.store.get("g")
+        assert ej.version == e0.version
+        np.testing.assert_array_equal(np.asarray(ej.C), e0.C)
+    finally:
+        fe3.close()
+
+
+def test_service_autockpt_dirty_threshold_triggers_background_snapshot(
+        tmp_path):
+    fe = _fe(True, autockpt_dir=str(tmp_path), autockpt_period_s=999.0,
+             autockpt_dirty=1)
+    try:
+        f = fe.submit_detect("g", as_input(True, _raw_ego(12)))
+        fe.drain()
+        f.result(timeout=60)
+        deadline = time.perf_counter() + 10.0
+        while (fe.autockpt.n_snapshots == 0
+               and time.perf_counter() < deadline):
+            time.sleep(0.02)
+        assert fe.autockpt.n_snapshots >= 1, fe.autockpt.last_error
+        assert fe.autockpt.age_s() < 60.0
+    finally:
+        fe.close()
+
+
+def test_service_autockpt_writes_back_evicted_entries(tmp_path):
+    ckdir = str(tmp_path / "wb")
+    fe = _fe(True, autockpt_dir=ckdir, autockpt_period_s=999.0,
+             autockpt_recover=False, store_max_entries=2)
+    try:
+        futs = [fe.submit_detect(f"g{i}", as_input(True, _raw_ego(30 + i)))
+                for i in range(3)]
+        fe.drain()
+        for f in futs:
+            f.result(timeout=60)
+        assert fe.store.get("g0") is None
+        want = np.asarray(futs[0].result().C).copy()
+        fe.autockpt.snapshot(force=True)
+        assert fe.autockpt.n_written_back >= 1
+    finally:
+        fe.close()
+
+    fe2 = _fe(True, autockpt_dir=ckdir, autockpt_period_s=999.0)
+    try:
+        ent = fe2.store.get("g0")
+        assert ent is not None
+        np.testing.assert_array_equal(ent.C, want)
+        assert fe2.store.get("g1") is not None
+        assert fe2.store.get("g2") is not None
+    finally:
+        fe2.close()
+
+
+def test_autockpt_snapshots_only_committed_entries_under_load(tmp_path):
+    """The auto-checkpointer's thread snapshots after every commit while
+    the compute thread keeps committing warm updates, with the
+    interpreter switching threads every 10 us: every snapshot restores to
+    entries that were committed, each graph with the labels of its own
+    version, and the last one to the final entries."""
+    import sys
+
+    ckdir = str(tmp_path / "load")
+    fe = _fe(True, autockpt_dir=ckdir, autockpt_period_s=999.0,
+             autockpt_dirty=1, autockpt_keep=50, autockpt_recover=False)
+    committed = {}
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        futs = [fe.submit_detect(f"g{i}", as_input(True, _raw_ego(40 + i)))
+                for i in range(4)]
+        fe.drain()
+        for f in futs:
+            e = f.result(timeout=60)
+            committed[(f.graph_id, e.version)] = e.C.copy()
+        for r in range(6):
+            for i in range(4):
+                e = fe.submit_update(f"g{i}", _upd(fe.result(f"g{i}"),
+                                                   10 * r + i)).result(60)
+                committed[(f"g{i}", e.version)] = e.C.copy()
+        deadline = time.perf_counter() + 10.0
+        while fe.autockpt._dirty and time.perf_counter() < deadline:
+            time.sleep(0.01)
+    finally:
+        sys.setswitchinterval(old)
+        fe.close()                    # joins the thread, final snapshot
+    assert fe.autockpt._thread is None and fe.autockpt.n_snapshot_errors == 0
+    from repro_torch.checkpoint import checkpoint_steps
+    from repro_torch.timeline import restore_service_checkpoint
+
+    steps = checkpoint_steps(ckdir)
+    assert len(steps) >= 2
+    for step in steps:
+        back = SimpleNamespace(store=ResultStore(device="cpu"))
+        assert restore_service_checkpoint(back, ckdir, step=step) == step
+        for gid in back.store.graph_ids():
+            e = back.store.get(gid)
+            np.testing.assert_array_equal(e.C, committed[(gid, e.version)])
+    assert {back.store.get(f"g{i}").version for i in range(4)} == {7}

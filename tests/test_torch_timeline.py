@@ -13,12 +13,16 @@ against the JAX package's ``repro.timeline``, on the CPU.
   ``weight_by_degree`` both ways: ``state()`` arrays and meta, events,
   ``membership_at`` and ``timeline`` equal.
 * The front-end cases of tests/test_timeline.py that need only a store
-  and a tracker, through a holder object (the front end is ROADMAP A.11):
-  the checkpoint round trip that resumes updates, store eviction keeping
-  the timeline queryable, and three real compactions.  The planted
-  lifecycle script, the async service, the empty-window and
-  deferred-compaction service cases and the stream generators wait for
-  the front end (A.11) and the event streams (A.13).
+  and a tracker, through a holder object: the checkpoint round trip that
+  resumes updates, store eviction keeping the timeline queryable, and
+  three real compactions.
+* The same cases through the port's ``CommunityService`` built from a
+  ``ServiceConfig``, and the planted merge -> split -> death -> birth
+  script (``repro_torch.data.planted_timeline_script``) through the sync
+  adapter and the async service, the empty-window and deferred-compaction
+  service cases: the reference's assertions, and where the run is on
+  event time, the tracker's ``state()``, events and memberships equal to
+  the reference service's.
 """
 import tempfile
 import time
@@ -780,3 +784,281 @@ def test_external_ids_stable_across_three_real_compactions():
         assert tl.internal_of("g", x) is None
     assert len(tl.snapshots("g")) == 4
     assert all(s.n_disconnected == 0 for s in tl.snapshots("g"))
+
+
+# ---------------------------------------------------------------------------
+# the service cases, through each package's CommunityService
+# ---------------------------------------------------------------------------
+
+import asyncio  # noqa: E402
+
+from _torch_service import share_compiles  # noqa: E402
+
+import repro.data.streams as js  # noqa: E402
+import repro_torch.data as tdata  # noqa: E402
+import repro_torch.service as tservice  # noqa: E402
+
+
+def _svc(port, **kw):
+    """A timeline-enabled ``CommunityService`` of either package."""
+    kw.setdefault("timeline_enabled", True)
+    kw.setdefault("telemetry_enabled", False)
+    if port:
+        return tservice.CommunityService(
+            config=tservice.ServiceConfig(**kw), device="cpu")
+    return share_compiles(jservice.CommunityService(
+        config=jservice.ServiceConfig(**kw)))
+
+
+def _graph(port, gj):
+    return _port(gj) if port else gj
+
+
+def _replay_planted(port, svc):
+    """Seed detect at t=0 + the five script windows through the sync
+    windowed path; returns (the windows' expected kinds, g0)."""
+    if port:
+        g0, windows, expected = tdata.planted_timeline_script(device="cpu")
+    else:
+        g0, windows, expected = js.planted_timeline_script()
+    svc.frontend.set_snapshot_time("g", 0.0)
+    svc.submit_detect("g", g0)
+    svc.pump(force=True)
+    W = tt.WindowedIngest if port else jt.WindowedIngest
+    wi = W(svc.frontend, "g", window=1.0)
+    for evs in windows:
+        for e in evs:
+            wi.ingest(e)
+    wi.flush()
+    return expected, g0
+
+
+def _planted_asserts(svc, expected, g0):
+    snaps = svc.timeline_snapshots("g")
+    assert all(s.n_disconnected == 0 for s in snaps)
+    got = {s.t: sorted(e.kind for e in svc.lifecycle_events("g")
+                       if e.t == s.t and e.kind != "continuation")
+           for s in snaps if s.t > 0}
+    assert got == {float(i + 1): sorted(k) for i, k in enumerate(expected)}
+    m = svc.membership_at
+    assert m("g", 3, 1.5) != m("g", 0, 1.5)
+    assert m("g", 3, 2.0) == m("g", 0, 2.0)
+    assert m("g", 3, 3.0) != m("g", 0, 3.0)
+    assert m("g", 2, 3.0) is not None and m("g", 2, 4.0) is None
+    assert m("g", int(g0.n_nodes)) is not None
+    dead_cid = m("g", 2, 3.0)
+    tl = svc.community_timeline(dead_cid)
+    assert tl is not None and tl.dead_t == 4.0 and not tl.alive
+
+
+def test_planted_lifecycle_end_to_end_sync():
+    port, ref = _svc(True), _svc(False)
+    try:
+        expected, g0 = _replay_planted(True, port)
+        _planted_asserts(port, expected, g0)
+        _replay_planted(False, ref)
+        _same_state(port.timelines, ref.timelines)
+        _same_queries(port.timelines, ref.timelines, "g",
+                      [0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 5.0])
+        e, ej = port.store.get("g"), ref.store.get("g")
+        np.testing.assert_array_equal(e.C, np.asarray(ej.C))
+        assert e.version == ej.version == 6
+    finally:
+        port.close()
+        ref.close()
+
+
+def test_planted_lifecycle_end_to_end_async():
+    async def go():
+        g0, windows, expected = tdata.planted_timeline_script(device="cpu")
+        seen = []
+        cfg = tservice.ServiceConfig(timeline_enabled=True,
+                                     telemetry_enabled=False, batch_size=4,
+                                     update_batch_size=1)
+        async with tservice.AsyncCommunityService(cfg, device="cpu") as svc:
+            svc.subscribe_lifecycle(lambda evs: seen.extend(evs))
+            svc.frontend.set_snapshot_time("g", 0.0)
+            await (await svc.submit_detect("g", g0))
+            for i, evs in enumerate(windows):
+                fut = await svc.ingest_window("g", evs, t=float(i + 1))
+                await fut
+            snaps = svc.timeline_snapshots("g")
+            assert all(s.n_disconnected == 0 for s in snaps)
+            got = {s.t: sorted(e.kind for e in svc.lifecycle_events("g")
+                               if e.t == s.t and e.kind != "continuation")
+                   for s in snaps if s.t > 0}
+            assert got == {float(i + 1): sorted(k)
+                           for i, k in enumerate(expected)}
+            assert svc.membership_at("g", 3, 2.0) == \
+                svc.membership_at("g", 0, 2.0)
+            assert svc.membership_at("g", 2, 4.0) is None
+            kinds = {e.kind for e in seen}
+            assert {"merge", "split", "death", "birth"} <= kinds
+            return svc.timelines.state()
+
+    (arrays, meta) = asyncio.run(go())
+    ref = _svc(False)
+    try:
+        _replay_planted(False, ref)
+        ra, rm = ref.timelines.state()
+        assert meta == rm and list(arrays) == list(ra)
+        for k in arrays:
+            np.testing.assert_array_equal(arrays[k], ra[k], err_msg=k)
+    finally:
+        ref.close()
+
+
+def test_empty_window_is_a_snapshot_of_continuations():
+    def run(port):
+        svc = _svc(port)
+        gj = ring_of_cliques(n_cliques=4, clique_size=5)
+        svc.frontend.set_snapshot_time("g", 0.0)
+        svc.submit_detect("g", _graph(port, gj))
+        svc.pump(force=True)
+        W, E = ((tt.WindowedIngest, tdata.GraphEvent) if port
+                else (jt.WindowedIngest, js.GraphEvent))
+        wi = W(svc.frontend, "g", window=1.0)
+        wi.ingest(E(2.5, "edge_add", u=0, v=1, w=0.5))
+        wi.flush()
+        return svc
+
+    port, ref = run(True), run(False)
+    try:
+        snaps = port.timeline_snapshots("g")
+        assert [s.t for s in snaps] == [0.0, 1.0, 2.0, 3.0]
+        for s in snaps[1:3]:
+            evs = [e for e in port.lifecycle_events("g") if e.t == s.t]
+            assert evs and all(e.kind == "continuation" for e in evs)
+        _same_state(port.timelines, ref.timelines)
+    finally:
+        port.close()
+        ref.close()
+
+
+def _churn_members(port, compact_window, horizon=8.0):
+    gj = ring_of_cliques(n_cliques=6, clique_size=6)
+    svc = _svc(port, compact_window=compact_window)
+    svc.frontend.set_snapshot_time("g", 0.0)
+    svc.submit_detect("g", _graph(port, gj))
+    svc.pump(force=True)
+    W = tt.WindowedIngest if port else jt.WindowedIngest
+    wi = W(svc.frontend, "g", window=1.0)
+    stream = (tdata.graph_event_stream if port else js.graph_event_stream)(
+        _graph(port, gj), rate=40.0, seed=7,
+        mix=(("edge_add", 0.3), ("edge_del", 0.1), ("vertex_add", 0.2),
+             ("vertex_del", 0.4)), min_vertices=12)
+    for e in stream:
+        if e.t > horizon:
+            break
+        wi.ingest(e)
+    wi.flush()
+    snaps = svc.timeline_snapshots("g")
+    final = snaps[-1]
+    return svc, {int(x): int(c) for x, c in zip(final.ext, final.cid)}, snaps
+
+
+def test_deferred_compaction_equivalence_and_flush():
+    svc0, m0, snaps0 = _churn_members(True, 0)
+    svc4, m4, snaps4 = _churn_members(True, 4)
+    ref4, mr4, _ = _churn_members(False, 4)
+    try:
+        assert svc0.store.n_compaction_flushes == 0
+        assert svc4.store.n_compaction_flushes >= 3
+        assert all(s.n_disconnected == 0 for s in snaps0 + snaps4)
+        assert set(m0) == set(m4)
+        assert svc4.timelines.n_binding_mismatches == 0
+        for x, c in m4.items():
+            assert svc4.membership_at("g", x) == c
+        ext = svc4.timelines.external_ids("g")
+        retired = sorted(set(range(36)) - set(m4))[:5]
+        for x in retired:
+            assert svc4.timelines.internal_of("g", x) is None
+        # the reference service, on the same stream: the same tracker
+        assert m4 == mr4
+        _same_state(svc4.timelines, ref4.timelines)
+        entry = svc4.store.get("g")
+        assert entry.deferred.size > 0
+        e2 = svc4.store.flush_compaction("g")
+        assert e2.deferred.size == 0
+        final = svc4.timeline_snapshots("g")[-1]
+        assert {int(x): int(c)
+                for x, c in zip(final.ext, final.cid)} == m4
+        assert ext is not None
+    finally:
+        for s in (svc0, svc4, ref4):
+            s.close()
+
+
+def test_service_external_ids_stable_across_three_real_compactions():
+    gj = ring_of_cliques(n_cliques=4, clique_size=6)
+    svc = _svc(True)
+    try:
+        svc.frontend.set_snapshot_time("g", 0.0)
+        svc.submit_detect("g", _port(gj))
+        svc.pump(force=True)
+        wi = tt.WindowedIngest(svc.frontend, "g", window=1.0)
+        doomed = [(0, 1), (2, 3), (4, 5)]
+        for i, pair in enumerate(doomed):
+            for x in pair:
+                wi.ingest(tdata.GraphEvent(i + 0.5, "vertex_del", u=x))
+        wi.flush()
+        gone = {x for pair in doomed for x in pair}
+        ext = svc.timelines.external_ids("g")
+        assert sorted(ext.tolist()) == sorted(set(range(24)) - gone)
+        for x in sorted(set(range(24)) - gone):
+            assert svc.membership_at("g", x) is not None
+        for x in gone:
+            assert svc.membership_at("g", x) is None
+            assert svc.timelines.internal_of("g", x) is None
+        assert len(svc.timeline_snapshots("g")) >= 4
+    finally:
+        svc.close()
+
+
+def test_service_store_eviction_keeps_timeline_queryable():
+    svc = _svc(True, store_max_entries=2)
+    try:
+        for i in range(3):
+            svc.frontend.set_snapshot_time(f"g{i}", float(i))
+            svc.submit_detect(f"g{i}", _port(ring_of_cliques(
+                n_cliques=3, clique_size=5)))
+            svc.pump(force=True)
+        assert svc.store.get("g0") is None
+        assert svc.store.n_evicted == 1
+        assert len(svc.timeline_snapshots("g0")) == 1
+        assert svc.membership_at("g0", 0) is not None
+        assert svc.lifecycle_events("g0")
+        assert svc.timelines.drop_graph("g0") == 1
+        assert svc.timeline_snapshots("g0") == []
+        assert svc.membership_at("g0", 0) is None
+        assert svc.membership_at("g2", 0) is not None
+    finally:
+        svc.close()
+
+
+def test_service_checkpoint_roundtrip_preserves_membership_and_resumes():
+    svc, svc2 = _svc(True), _svc(True)
+    try:
+        _replay_planted(True, svc)
+        with tempfile.TemporaryDirectory() as d:
+            step = tt.save_service_checkpoint(svc.frontend, d)
+            assert tt.restore_service_checkpoint(svc2.frontend, d) == step
+        s1 = svc.timeline_snapshots("g")
+        s2 = svc2.timeline_snapshots("g")
+        assert len(s1) == len(s2) > 0
+        for a, b in zip(s1, s2):
+            assert a.t == b.t and np.array_equal(a.ext, b.ext) \
+                and np.array_equal(a.cid, b.cid) \
+                and a.n_communities == b.n_communities \
+                and a.n_disconnected == b.n_disconnected
+        _same_queries(svc2.timelines, svc.timelines, "g",
+                      [s.t for s in s1] + [1.5, 2.5, 99.0])
+        assert svc.store.get("g").version == svc2.store.get("g").version
+        wi = tt.WindowedIngest(svc2.frontend, "g", window=1.0, t0=5.0)
+        wi.ingest(tdata.GraphEvent(5.5, "edge_add", u=0, v=3, w=1.0))
+        wi.flush()
+        s2b = svc2.timeline_snapshots("g")
+        assert len(s2b) == len(s1) + 1 and s2b[-1].n_disconnected == 0
+    finally:
+        svc.close()
+        svc2.close()
