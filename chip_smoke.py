@@ -156,6 +156,24 @@ result line):
    its segment-reduce launches (above 0), its latency p50/p99, and the
    sync and async steps the host ms a request by phase (admission,
    compose, engine, commit, resolve; a batch-level span once a batch).
+9. The sharded path, on the card (``launch/mesh.py``,
+   ``core/distributed.py``): one worker process a rank, two or four ranks
+   sharing ``cuda:0`` over gloo (NCCL refuses two ranks on one card).
+   (1) ``louvain_sharded`` standard on phase 4's graph with 2 ranks:
+   phase 4's labels, stats, community count and Q bits, 0 disconnected.
+   (2) ``detect()`` with ``DetectOptions(mesh=...)`` for standard and
+   max-quality, and ``louvain_sharded`` with the split policies of the
+   reference's sharded test (none, sp-pj, sp-lp, sl-pj, refine), on phase
+   3's two graphs with 2 and 4 ranks: each equal to the card's
+   single-device bits.  (3) ``BatchedLouvainEngine.detect_sharded``
+   equal to ``detect_one`` on phase 3's SBM.  (4) ``make_host_mesh(2)``
+   raises on a machine of one card; with two cards or more (1) runs again
+   on an NCCL mesh, one rank a card.  Each step prints its wall time and,
+   per rank, its segment-reduce launches (above 0, counted in the
+   worker), all-reduce calls and bytes, the graph's transfer to the
+   worker, passes and sweeps, and the host partition and pass seconds;
+   with the halo-byte counter and each mesh's worker start-up time.  A
+   failure of any rank fails the phase.
 
 ``--profile`` adds a traced run of phase 4's ``detect()`` of each tier
 (device time by kernel, the device's busy share, and each segment-reduce
@@ -178,6 +196,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2468,6 +2487,260 @@ def frontend_phase(engine_walls: dict, profile: bool) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sharded single-graph path on the card
+# ---------------------------------------------------------------------------
+
+def log_ranks(mesh, *, per_pass: bool = False) -> list[int]:
+    """Print each rank's numbers over the calls in ``mesh.reports`` (its
+    B.1 launches, all-reduce calls and bytes, graph transfer, wall, passes
+    and sweeps, host partition and pass seconds) and return the launches
+    by rank; raise where a rank launched B.1 no time."""
+    calls = list(mesh.reports)
+    launches = []
+    for r in range(mesh.size):
+        mine = [c[r] for c in calls]
+        passes = [p for c in mine for p in c["passes"]]
+        n = sum(c["segreduce_launches"] for c in mine)
+        launches.append(n)
+        part = [p["t1"] - p["t0"] for p in passes]
+        run = [p["t2"] - p["t1"] for p in passes]
+        log(f"    rank {r} ({mine[0]['device']}): segreduce launches={n}  "
+            f"all-reduce calls={sum(c['all_reduce_calls'] for c in mine)} "
+            f"bytes={sum(c['all_reduce_bytes'] for c in mine)}  transfer s="
+            f"{sum(c['transfer_s'] for c in mine)}  rank wall s="
+            f"{sum(c['wall_s'] for c in mine)}  calls={len(mine)}  passes="
+            f"{len(passes)}  sweeps={sum(p['li'] for p in passes)}  "
+            f"partition s={sum(part)}  pass s={sum(run)}")
+        if per_pass:
+            log(f"      per pass: partition s={part}  pass s={run}  "
+                f"live edges={[p['m_total'] for p in passes]}  this rank's="
+                f"{[p['m_rank'] for p in passes]}")
+    if not calls or min(launches) == 0:
+        raise AssertionError(f"a rank launched no segreduce kernel: "
+                             f"{launches}")
+    return launches
+
+
+def sharded_run(mesh, fn, *, per_pass=False):
+    """``fn()`` once, with the mesh's reports cleared just before (each
+    rank sets its counts to 0 at the start of each job): ``(result, wall
+    seconds, launches by rank)``."""
+    import torch
+
+    mesh.reports.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, log_ranks(mesh, per_pass=per_pass)
+
+
+def same_louvain(a, b) -> bool:
+    """Equal labels and equal single-device stats (the sharded driver's
+    own keys aside)."""
+    import torch
+
+    (Ca, sa), (Cb, sb) = a, b
+    return torch.equal(Ca.cpu(), Cb.cpu()) and all(
+        sa[k] == sb[k] for k in sb)
+
+
+def sharded_full_size(mesh, g, standard, label) -> list[int]:
+    """9.1: ``louvain_sharded`` standard at full size: phase 4's labels,
+    stats and Q bits, 0 disconnected."""
+    from repro_torch.core import LouvainConfig, disconnected_communities
+    from repro_torch.core.distributed import louvain_sharded
+    from repro_torch.core.modularity import modularity
+    from repro_torch.graph.container import strip_padding
+    from repro_torch.telemetry.sinks import InMemorySink, Telemetry
+
+    tel = Telemetry()
+    mem = tel.register(InMemorySink())
+    log(f"  9.1 louvain_sharded standard, {label}")
+    (C, st), wall, launches = sharded_run(
+        mesh, lambda: louvain_sharded(g, LouvainConfig(), mesh=mesh,
+                                      telemetry=tel), per_pass=True)
+    live = strip_padding(g.src, g.dst, g.w, g.ghost)
+    q = float(modularity(*live, C))
+    n_dis = int(disconnected_communities(*live, C, g.n_nodes)[
+        "n_disconnected"])
+    equal = same_louvain((C, st), (standard.labels, standard.stats))
+    ghosts = {dict(lk)["shard"]: v for (n, lk), v in mem.gauges.items()
+              if n == "sharded_ghost_vertices"}
+    log(f"    wall={wall} s  passes={st['passes']}  sweeps(li_total)="
+        f"{st['li_total']}  communities={st['n_communities']}  "
+        f"disconnected={n_dis}  Q={q!r}  m_shard={st['m_shard']}  "
+        f"labels and stats == phase 4's detect()={equal}  Q bits == phase "
+        f"4's={q == standard.modularity}  halo-byte counter="
+        f"{mem.counter_total('sharded_halo_bytes')}  ghosts by shard "
+        f"(last pass)={ghosts}  ghost_vertices={st['ghost_vertices']}")
+    if not equal or q != standard.modularity or n_dis != 0 or \
+            st["n_communities"] != standard.n_communities:
+        raise AssertionError(f"9.1 ({label}): the sharded run differs from "
+                             "phase 4's detect()")
+    return launches
+
+
+# the split policies of the reference's sharded parity test (one of each
+# family: none, split in the slot by LP and by pointer jumping, split last,
+# refine); every policy runs on CPU ranks in tests/test_torch_sharded.py
+SHARDED_SPLITS = ("none", "sp-pj", "sp-lp", "sl-pj", "refine")
+
+
+def sharded_small(meshes) -> dict:
+    """9.2: ``detect()`` with a mesh for standard and max-quality, and
+    ``louvain_sharded`` for each of :data:`SHARDED_SPLITS`, on phase 3's
+    two graphs with 2 and 4 ranks sharing the card: each equal to the
+    card's single-device bits.  Returns the B.1 launches by rank summed
+    over the calls, by mesh size."""
+    import torch
+
+    from repro_torch.core import (DetectOptions, LouvainConfig, detect,
+                                  louvain_impl)
+    from repro_torch.core.distributed import louvain_sharded
+    from repro_torch.graph import rmat_graph, sbm_graph
+    from repro_torch.telemetry.sinks import InMemorySink, Telemetry
+
+    graphs = {
+        "rmat_graph(scale=12, edge_factor=8, seed=1)":
+            rmat_graph(scale=12, edge_factor=8, seed=1, device="cuda"),
+        "sbm_graph(2048, 24, 0.12, 0.002, seed=2)":
+            sbm_graph(2048, 24, 0.12, 0.002, seed=2, device="cuda")[0],
+    }
+    launches = {mesh.size: [0] * mesh.size for mesh in meshes}
+
+    def add(mesh, ns):
+        launches[mesh.size] = [a + b for a, b in zip(launches[mesh.size], ns)]
+
+    for name, g in graphs.items():
+        single = {a: detect(g, options=DetectOptions(algorithm=a))
+                  for a in ("standard", "max-quality")}
+        single_split = {s: louvain_impl(g, LouvainConfig(split=s))
+                        for s in SHARDED_SPLITS}
+        for mesh in meshes:
+            log(f"  9.2 {name}, {mesh.size} ranks on {set(mesh.devices)} "
+                f"({mesh.backend})")
+            for a, want in single.items():
+                got, wall, n = sharded_run(mesh, lambda: detect(
+                    g, options=DetectOptions(algorithm=a, mesh=mesh)))
+                equal = torch.equal(got.labels, want.labels) and all(
+                    got.stats[k] == v for k, v in want.stats.items())
+                log(f"    detect {a}: wall={wall} s  == single-device "
+                    f"(labels, stats)={equal}  Q bits equal="
+                    f"{got.modularity == want.modularity}  communities="
+                    f"{got.n_communities}  disconnected="
+                    f"{got.n_disconnected}")
+                if not equal or got.modularity != want.modularity or \
+                        got.n_disconnected != want.n_disconnected:
+                    raise AssertionError(f"9.2 {name} detect {a}, "
+                                         f"{mesh.size} ranks")
+                add(mesh, n)
+            for split, want in single_split.items():
+                tel = Telemetry()
+                mem = tel.register(InMemorySink())
+                got, wall, n = sharded_run(mesh, lambda: louvain_sharded(
+                    g, LouvainConfig(split=split), mesh=mesh, telemetry=tel))
+                equal = same_louvain(got, want)
+                log(f"    louvain_sharded {split}: wall={wall} s  == "
+                    f"single-device (labels, stats)={equal}  communities="
+                    f"{got[1]['n_communities']}  halo-byte counter="
+                    f"{mem.counter_total('sharded_halo_bytes')}")
+                if not equal:
+                    raise AssertionError(f"9.2 {name} {split}, "
+                                         f"{mesh.size} ranks")
+                add(mesh, n)
+    return launches
+
+
+def sharded_engine(mesh) -> list[int]:
+    """9.3: the engine's ``detect_sharded`` equal to its ``detect_one`` on
+    phase 3's SBM."""
+    from repro_torch.core import DetectOptions
+    from repro_torch.graph import sbm_graph
+    from repro_torch.service.engine import BatchedLouvainEngine
+    from repro_torch.telemetry.sinks import InMemorySink, Telemetry
+
+    g = sbm_graph(2048, 24, 0.12, 0.002, seed=2, device="cuda")[0]
+    tel = Telemetry()
+    mem = tel.register(InMemorySink())
+    eng = BatchedLouvainEngine(options=DetectOptions(mesh=mesh),
+                               telemetry=tel)
+    log("  9.3 BatchedLouvainEngine.detect_sharded, "
+        "sbm_graph(2048, 24, 0.12, 0.002, seed=2)")
+    got, wall, launches = sharded_run(mesh, lambda: eng.detect_sharded(g))
+    want = eng.detect_one(g)
+    equal = (got.C == want.C).all() and all(
+        getattr(got, k) == getattr(want, k) for k in (
+            "n_communities", "n_disconnected", "fraction", "passes", "q",
+            "sweeps", "split_moved"))
+    log(f"    wall={wall} s  == detect_one={bool(equal)}  communities="
+        f"{got.n_communities}  disconnected={got.n_disconnected}  q="
+        f"{got.q!r}  halo-byte counter="
+        f"{mem.counter_total('sharded_halo_bytes')}")
+    if not equal:
+        raise AssertionError("9.3: detect_sharded != detect_one")
+    return launches
+
+
+def sharded_phase(g, standard) -> dict:
+    """Phase 9: the sharded path on the card (``launch/mesh.py``,
+    ``core/distributed.py``), two and four ranks sharing ``cuda:0`` over
+    gloo.  Returns the B.1 launches by path, a list by rank."""
+    import torch
+
+    from repro_torch.launch import make_host_mesh, make_mesh
+
+    mesh2 = make_mesh(("cuda:0", "cuda:0"))
+    mesh4 = make_mesh(("cuda:0",) * 4)
+    launches = {}
+    try:
+        # both meshes' workers start at once
+        with ThreadPoolExecutor(2) as pool:
+            for f in [pool.submit(m.start) for m in (mesh2, mesh4)]:
+                f.result()
+        for mesh in (mesh2, mesh4):
+            log(f"  mesh {mesh.devices} ({mesh.backend}): workers started in "
+                f"{mesh.startup_seconds} s")
+        t0 = time.perf_counter()
+        launches["louvain_sharded standard, 2 ranks on one card"] = \
+            sharded_full_size(mesh2, g, standard, "2 ranks on cuda:0 (gloo)")
+        log(f"  step 9.1: {time.perf_counter() - t0} s")
+        t0 = time.perf_counter()
+        for size, ns in sharded_small((mesh2, mesh4)).items():
+            launches[f"phase 3's graphs sharded (detect standard and "
+                     f"max-quality, louvain_sharded with five split "
+                     f"policies), {size} ranks"] = ns
+        log(f"  step 9.2: {time.perf_counter() - t0} s")
+        t0 = time.perf_counter()
+        launches["detect_sharded, 2 ranks"] = sharded_engine(mesh2)
+        log(f"  step 9.3: {time.perf_counter() - t0} s")
+    finally:
+        mesh2.close()
+        mesh4.close()
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        try:
+            make_host_mesh(2)
+        except ValueError as e:
+            log(f"  9.4 make_host_mesh(2) on {n_cards} card raises: {e}")
+        else:
+            raise AssertionError("9.4: make_host_mesh(2) on one card")
+        log("  9.4 nccl: not run (1 card)")
+    else:
+        nccl = make_host_mesh(2)
+        try:
+            nccl.start()
+            log(f"  9.4 mesh {nccl.devices} ({nccl.backend}): workers "
+                f"started in {nccl.startup_seconds} s")
+            launches["louvain_sharded standard, nccl"] = sharded_full_size(
+                nccl, g, standard, "2 ranks, one a card (nccl)")
+        finally:
+            nccl.close()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=21,
@@ -2579,6 +2852,11 @@ def main(argv=None) -> int:
     by_path.update(frontend_phase(engine_walls=engine_walls,
                                   profile=args.profile))
     log(f"  phase 8: {time.perf_counter() - t0} s")
+
+    log("phase 9: the sharded path, on the card")
+    t0 = time.perf_counter()
+    by_path.update(sharded_phase(g, res))
+    log(f"  phase 9: {time.perf_counter() - t0} s")
 
     entry["launches"] = launches
     entry["launches_by_path"] = by_path

@@ -5,20 +5,22 @@
     res = detect(g)                  # on CUDA; detect(g, device="cpu")
     res.labels, res.modularity, res.n_disconnected
 
-Ported fields: ``algorithm``, ``louvain``, ``scan`` and the dense-scan
-crossover (``dense_max_nv``, ``dense_small_nv``, ``dense_min_density``).
-``detect()`` resolves ``scan='auto'`` by the graph's shape
+Ported fields: ``algorithm``, ``louvain``, ``scan``, the dense-scan
+crossover (``dense_max_nv``, ``dense_small_nv``, ``dense_min_density``)
+and ``mesh``.  ``detect()`` resolves ``scan='auto'`` by the graph's shape
 (:meth:`DetectOptions.resolved_scan`), as the reference's does: small
 graphs take the dense scan.  Both scans give the same labels bit for bit.
+With a ``mesh`` (an int or a ``launch.mesh.Mesh``) detection runs sharded
+(``core/distributed.py``), with the same labels as without one.
 
-The reference's ``seg_impl``, ``block_m`` and ``mesh`` have no counterpart:
-dispatch is by device (``kernels/ops.py``), the segment-reduce kernel's
-tile is compiled in, and sharding is ROADMAP queue A, item 12.  So
-:meth:`DetectOptions.cache_key` keys on the tier and the scan alone.  The
-port never had the reference's flat legacy keywords (``cfg=``,
-``dense_max_nv=``, ...): callers pass ``options=``, and any other keyword,
-``seg_impl``, ``block_m``, ``seg_block_m`` and ``mesh`` among them, raises
-Python's own ``TypeError``.
+The reference's ``seg_impl`` and ``block_m`` have no counterpart: dispatch
+is by device (``kernels/ops.py``) and the segment-reduce kernel's tile is
+compiled in.  So :meth:`DetectOptions.cache_key` keys on the tier and the
+scan alone (the mesh is left out, as in the reference).  The port never
+had the reference's flat legacy keywords (``cfg=``, ``dense_max_nv=``,
+``mesh=``, ...): callers pass ``options=``, and any other keyword,
+``seg_impl``, ``block_m`` and ``seg_block_m`` among them, raises Python's
+own ``TypeError``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.core.portfolio import (
     ALGORITHMS, QualityContract, run_detection,
 )
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh, resolve_mesh
 
 _SCANS = ("auto", "sort", "dense")
 
@@ -51,6 +54,9 @@ class DetectOptions:
       dense_max_nv / dense_small_nv / dense_min_density: the dense-scan
                  crossover thresholds 'auto' consults
                  (``service/buckets.py:choose_scan``).
+      mesh:      None (one device), an int (that many ranks on the
+                 graph's device kind) or a ``launch.mesh.Mesh``: the
+                 sharded single-graph path (:meth:`resolved_mesh`).
     """
 
     algorithm: str = "standard"
@@ -59,6 +65,7 @@ class DetectOptions:
     dense_max_nv: int = 1025
     dense_small_nv: int = 129
     dense_min_density: Optional[float] = None
+    mesh: object = None
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
@@ -67,6 +74,11 @@ class DetectOptions:
                 f"got {self.algorithm!r}")
         if self.scan not in _SCANS:
             raise ValueError(f"scan must be one of {_SCANS}, got {self.scan!r}")
+        if self.mesh is not None and (
+                isinstance(self.mesh, bool)
+                or not isinstance(self.mesh, (int, Mesh))):
+            raise TypeError(
+                f"mesh must be None, an int or a Mesh, got {self.mesh!r}")
 
     def replace(self, **kw) -> "DetectOptions":
         return dataclasses.replace(self, **kw)
@@ -85,12 +97,20 @@ class DetectOptions:
                            dense_min_density=self.dense_min_density,
                            device_type=device_type)
 
+    def resolved_mesh(self, device=None) -> Optional[Mesh]:
+        """``None``, or a concrete :class:`~repro_torch.launch.mesh.Mesh`:
+        an int is that many ranks of ``make_host_mesh`` on ``device``'s kind
+        (``None`` = CUDA), raising when there are fewer cards, as the
+        reference raises with fewer devices."""
+        return resolve_mesh(self.mesh, device)
+
     def cache_key(self, *parts, algorithm: Optional[str] = None,
                   scan: Optional[str] = None) -> tuple:
         """The dispatch key: shape/phase ``parts`` + the tier + the scan
         (``algorithm``/``scan`` override with per-request / per-bucket
         resolved values).  The reference's key also carries ``seg_impl``
-        and ``block_m``, which the port does not have."""
+        and ``block_m``, which the port does not have; neither key has the
+        mesh."""
         return (*parts,
                 self.algorithm if algorithm is None else algorithm,
                 self.scan if scan is None else scan)
@@ -121,8 +141,9 @@ def detect(graph, *, options: Optional[DetectOptions] = None, device=None,
 
     Runs on ``device`` (``None`` = CUDA; raises when CUDA is absent),
     moving the graph there first if needed.  ``phase_seconds``, if given,
-    collects per-phase wall seconds (see ``louvain_impl``).  ``labels``
-    include the ghost/padding slots; mask with ``graph.node_mask()``.
+    collects per-phase wall seconds (see ``louvain_impl``; with a mesh only
+    'select', 'detector' and 'modularity').  ``labels`` include the
+    ghost/padding slots; mask with ``graph.node_mask()``.
     """
     opts = options if options is not None else DetectOptions()
     graph = graph.to(resolve_device(device))

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import _segments as seg
+from repro_torch.distributed import collectives as col
 from repro_torch.kernels import ops
 
 NEG = float("-inf")
@@ -59,23 +60,47 @@ def _hash_parity(ids: torch.Tensor, it: int) -> torch.Tensor:
     return ((h >> 13) & 1).to(torch.int32)
 
 
-def realized_modularity(src, dst, w, C, Sigma, two_m) -> torch.Tensor:
+def realized_modularity(src, dst, w, C, Sigma, two_m, *, group=None,
+                        gidx=None, m_total=None) -> torch.Tensor:
     """Q of the current partition: two flat reductions (internal edge
-    weight, sum of Sigma^2), each in one fixed order on every device."""
+    weight, sum of Sigma^2), each in one fixed order on every device.
+
+    On a rank of ``group`` (the sharded driver, ``core/distributed.py``)
+    the masked weights of this shard's edges go to their global live-edge
+    slots ``gidx`` of an ``[m_total + 1]`` vector, and the ``psum`` adds
+    only disjoint-support zeros (``x + 0.0 == x``).  So ``full[:m_total]``
+    is elementwise the single-device masked-weight vector, at the same
+    length, and the same ``sum_inorder`` over it gives the same bits:
+    ``sum_inorder``'s tree depends on the length, so the vector must be
+    the whole one.  A ``psum`` of per-rank scalar partials would fold in
+    another order.  Sigma is replicated, so its sum needs no collective.
+    """
     w_in = torch.where(C[src] == C[dst], w, 0.0)
+    if group is not None:
+        full = torch.zeros(m_total + 1, dtype=torch.float32, device=C.device)
+        full[gidx.long()] = w_in
+        w_in = col.psum(full, group)[:m_total]
     internal = ops.sum_inorder(w_in)
     sig2 = ops.sum_inorder(Sigma * Sigma)
     return internal / two_m - sig2 / (two_m * two_m)
 
 
 def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
-                anchored=True):
+                anchored=True, owned=None, group=None):
     """One synchronous half-sweep (fused sortscan).  Returns
     ``(C_new, Sigma_new, moved, gain, want)``.
 
     ``target_ok``: bool[nv] — moves only into communities flagged True (the
     handshake schedule).  ``anchored``: join-attraction counts only frozen
     neighbours; off for the 'all' ablation, where nothing is frozen.
+
+    On a rank of ``group``, ``src``/``dst``/``w`` are this shard's edges
+    and ``owned`` (bool[nv]) the vertices whose out-edges they all are:
+    only owned vertices are candidates, ``C_new``, ``moved`` and ``want``
+    merge the owners' decisions (an int32 ``psum`` of disjoint rows, a
+    ``psum`` and a ``pmax``), and every rank recomputes Sigma from the
+    replicated K and ``C_new`` with the single-device in-order fold; it is
+    never merged.  ``gain`` stays this shard's (no caller reads it).
     """
     nv = C.shape[0]
     m_cap = src.shape[0]
@@ -115,6 +140,8 @@ def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
     )
     valid = starts & (s_src < ghost) & (s_cd < ghost) & (s_cd != d_of_i)
     cand = valid & (W_frz_e > 0.0) & movable[s_src]
+    if owned is not None:
+        cand = cand & owned[s_src]
     if target_ok is not None:
         cand = cand & target_ok[s_cd]
     # 'want': a positive move ignoring the schedule gates keeps a vertex
@@ -134,11 +161,16 @@ def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
                                   s_src, nv, op="min")
     move = (best > 0.0) & (c_star < ghost)
     C_new = torch.where(move, c_star, C)
+    gain = torch.sum(torch.where(move, best, 0.0))
+    if group is not None:
+        # merge the owners' decisions (each vertex owned by one shard)
+        C_new = col.psum(torch.where(owned, C_new, 0), group)
+        move = col.psum((owned & move).to(torch.int32), group) > 0
+        want = col.pmax((want & owned).to(torch.int32), group) > 0
     C_new[ghost] = ghost
 
     # --- exact Sigma recompute (synchronous, in-order) --------------------
     Sigma_new = ops.segment_sum_inorder(K, C_new, nv)
-    gain = torch.sum(torch.where(move, best, 0.0))
     return C_new, Sigma_new, move, gain, want
 
 
@@ -231,25 +263,29 @@ def dense_adjacency(src, dst, nv: int) -> torch.Tensor:
     return adj
 
 
-def wake_neighbours(moved, src, dst, nv: int, adj=None) -> torch.Tensor:
+def wake_neighbours(moved, src, dst, nv: int, adj=None,
+                    group=None) -> torch.Tensor:
     """bool[nv]: the vertices with a neighbour in ``moved``.  Keyed by the
     sorted src (on the symmetric directed COO out- and in-neighbours
     coincide, and booleans make it exact), or a column ``any`` of the
-    dense scan's adjacency."""
+    dense scan's adjacency.  On a rank of ``group``, a ``pmax`` merges the
+    shards' rows."""
     if adj is not None:
         return torch.any(adj & moved[:, None], dim=0)
-    return ops.segreduce_sorted(moved[dst].to(torch.int32), src, nv,
-                                op="max") > 0
+    nbr = ops.segreduce_sorted(moved[dst].to(torch.int32), src, nv, op="max")
+    return col.pmax(nbr, group) > 0
 
 
 def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
-               prune, active0, warm, scan, adj):
+               prune, active0, warm, scan, adj, owned=None, group=None,
+               gidx=None, m_total=None):
     """The sweep loop shared by :func:`local_move` and the warm start of
     ``core/dynamic.py``.  Returns ``(C_best, Sigma_best, l_i, sweeps)``.
 
     ``warm`` keeps a vertex awake only while it is active and wants a
     move (``nbr_moved | (want & active)``), as the reference's warm local
-    move does; the cold loop wakes every wanting vertex."""
+    move does; the cold loop wakes every wanting vertex.  ``owned``,
+    ``group``, ``gidx`` and ``m_total``: see :func:`local_move`."""
     nv = C0.shape[0]
     ghost = nv - 1
     dev = C0.device
@@ -261,7 +297,7 @@ def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
             adj = dense_adjacency(src, dst, nv)
         kw = dict(valid_cell=(ids[:, None] < ghost) & (ids[None, :] < ghost))
     elif scan == "sort":
-        sweep, adj, kw = _half_sweep, None, {}
+        sweep, adj, kw = _half_sweep, None, dict(owned=owned, group=group)
     else:
         raise ValueError(f"scan must be 'sort' or 'dense', got {scan!r}")
 
@@ -269,7 +305,8 @@ def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
     C[ghost] = ghost
     Sigma = Sigma0
     active = active0
-    q_prev = realized_modularity(src, dst, w, C, Sigma, two_m)
+    q_kw = dict(group=group, gidx=gidx, m_total=m_total)
+    q_prev = realized_modularity(src, dst, w, C, Sigma, two_m, **q_kw)
     C_best, Sigma_best, q_best = C, Sigma, q_prev
     dQ_iter = dQ_prev = np.float32(np.inf)
     it = n_prod = 0
@@ -285,10 +322,10 @@ def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
                 src, dst, w, C, K, Sigma, two_m, movable,
                 target_ok=target_ok, anchored=ph is not None, **kw)
             moved_any = moved_any | moved
-        q_now = realized_modularity(src, dst, w, C, Sigma, two_m)
+        q_now = realized_modularity(src, dst, w, C, Sigma, two_m, **q_kw)
         if prune:
             # neighbours of moved vertices wake up; everyone else sleeps
-            nbr_moved = wake_neighbours(moved_any, src, dst, nv, adj)
+            nbr_moved = wake_neighbours(moved_any, src, dst, nv, adj, group)
             # schedule-blocked desire stays awake
             active = nbr_moved | ((want & active) if warm else want)
         else:
@@ -316,7 +353,8 @@ SYNC_PHASES = {
 
 def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
                sync: str = "handshake", prune: bool = True,
-               scan: str = "sort", adj=None):
+               scan: str = "sort", adj=None, owned=None, group=None,
+               gidx=None, m_total=None):
     """Run the local-moving phase to convergence.
 
     ``tau`` is a float32 threshold (a numpy float32 or Python float holding
@@ -328,13 +366,25 @@ def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
     and wakes neighbours through the bool[nv, nv] adjacency ``adj``, built
     here from the edges when not given (the pass loop shares one with the
     split).
+
+    On a rank of the process group ``group`` (the sharded driver,
+    ``core/distributed.py``): ``src``/``dst``/``w`` are this shard's
+    edges, ``owned`` (bool[nv]) the vertices it owns, ``gidx`` (int32) the
+    global live-edge slot of each of its edges and ``m_total`` the live
+    edge count; ``K`` and ``Sigma0`` are replicated.  Every rank returns
+    the single-device result bit for bit.  With ``group=None`` these
+    arguments are unused and nothing changes.  The dense scan is
+    single-device only.
     """
     if sync not in SYNC_PHASES:
         raise ValueError(f"unknown sync mode {sync!r}")
+    if scan == "dense" and group is not None:
+        raise ValueError("scan='dense' is single-device only (group=None)")
     nv = C0.shape[0]
     active0 = torch.ones(nv, dtype=torch.bool, device=C0.device)
     C, Sigma, li, _ = _move_loop(
         src, dst, w, C0, K, Sigma0, two_m, tau=tau, max_iters=max_iters,
         phases=SYNC_PHASES[sync], prune=prune, active0=active0, warm=False,
-        scan=scan, adj=adj)
+        scan=scan, adj=adj, owned=owned, group=group, gidx=gidx,
+        m_total=m_total)
     return C, Sigma, li

@@ -45,6 +45,7 @@ from repro_torch.core.aggregate import aggregate
 from repro_torch.core.local_move import dense_adjacency, local_move
 from repro_torch.core.split import split_labels
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
 from repro_torch.graph.container import Graph, strip_padding
 from repro_torch.kernels import ops
 
@@ -102,7 +103,8 @@ class _Clock:
 
 
 def refine_labels(src, dst, w, C, two_m, *, tau, max_iters: int = 10,
-                  scan: str = "sort", adj=None):
+                  scan: str = "sort", adj=None, owned=None, group=None,
+                  gidx=None, m_total=None):
     """Leiden refinement: local-move from singletons within each community
     of ``C`` (cross-community weights zeroed, zero-weight edges kept in the
     edge list), scored against the full graph's ``two_m``.  Returns a
@@ -115,16 +117,20 @@ def refine_labels(src, dst, w, C, two_m, *, tau, max_iters: int = 10,
     ('handshake') and ``prune`` (True), whatever the pass's config says,
     and with the pass's ``scan``.  ``adj`` shares the dense scan's
     adjacency of the same edges (the masked edges keep every pair).
-    The reference's ``axis``, ``owned`` and ``skip`` have no counterpart in
-    this host loop, and its backend knobs none on a device-dispatched
-    reduce.
+    ``owned``, ``group``, ``gidx`` and ``m_total`` are the sharded
+    driver's (see ``local_move``): on a rank of ``group``, ``K_in`` takes
+    a disjoint-support ``psum``.  The reference's ``skip`` has no
+    counterpart in this host loop, and its backend knobs none on a
+    device-dispatched reduce.
     """
     nv = C.shape[0]
     w_in = torch.where(C[src] == C[dst], w, 0.0)
-    K_in = ops.segreduce_sorted(w_in, src, nv, op="sum")
+    K_in = col.psum(ops.segreduce_sorted(w_in, src, nv, op="sum"), group)
     C0 = torch.arange(nv, dtype=torch.int32, device=C.device)
     R, _, _ = local_move(src, dst, w_in, C0, K_in, K_in, two_m, tau=tau,
-                         max_iters=max_iters, scan=scan, adj=adj)
+                         max_iters=max_iters, scan=scan, adj=adj,
+                         owned=owned, group=group, gidx=gidx,
+                         m_total=m_total)
     return R
 
 
@@ -263,17 +269,27 @@ def louvain_impl(g: Graph, cfg: LouvainConfig = LouvainConfig(), *,
 
 
 def louvain(g: Graph, cfg: LouvainConfig | None = None, *,
-            scan: str = "sort", device=None):
+            scan: str = "sort", device=None, mesh=None):
     """GSP-Louvain, the public entry point: ``(C, stats)``.
 
     ``scan``: 'sort', 'dense' or 'auto', which means 'sort' here as in the
     reference's ``louvain()`` (only ``detect()`` resolves 'auto' by the
     graph's shape).  Runs on ``device`` (``None`` = CUDA; raises when CUDA
     is absent), moving the graph there first if needed.
+
+    ``mesh`` (an int or a ``launch.mesh.Mesh``) routes to the sharded
+    driver, ``core/distributed.py:louvain_sharded``, whose labels are the
+    single-device ones bit for bit; an int is that many ranks on
+    ``device``'s kind.  The dense scan is single-device only.
     """
     g = g.to(resolve_device(device))
-    return louvain_impl(g, cfg if cfg is not None else LouvainConfig(),
-                        scan="sort" if scan == "auto" else scan)
+    cfg = cfg if cfg is not None else LouvainConfig()
+    if mesh is not None:
+        if scan == "dense":
+            raise ValueError("scan='dense' is single-device only")
+        from repro_torch.core.distributed import louvain_sharded
+        return louvain_sharded(g, cfg, mesh=mesh)
+    return louvain_impl(g, cfg, scan="sort" if scan == "auto" else scan)
 
 
 def louvain_staged(g: Graph, cfg: LouvainConfig | None = None, *,

@@ -16,7 +16,16 @@ One dispatch over the tiers of ``DetectOptions.algorithm``, each with the
                    reference omits (ROADMAP C.7).
 
 Stats are the same five Python ints for every tier (passes / li_last /
-li_total / split_moved / n_communities).
+li_total / split_moved / n_communities); the sharded route adds
+``n_shards``, ``m_shard`` and ``ghost_vertices``.
+
+With ``DetectOptions.mesh`` the pass loops run sharded
+(``core/distributed.py:louvain_sharded``), for 'standard' and
+'max-quality' only, on the sortscan ('auto' means 'sort'; 'dense'
+raises).  max-quality makes the same pick between its two candidates, so
+``detect()`` with a mesh equals ``detect()`` without one.  The
+reference's ``partition()`` with a mesh runs the refined candidate alone
+(ROADMAP C.11); its engine's ``detect_sharded`` makes the pick.
 """
 from __future__ import annotations
 
@@ -90,7 +99,35 @@ def _standard_config(cfg: LouvainConfig) -> LouvainConfig:
     return cfg
 
 
-def partition(g, options, *, phase_seconds=None):
+def _pick(g, refined, standard, clock):
+    """max-quality's pick: the refined candidate ``(C, stats)`` where its
+    modularity is at least the GSP candidate's, else the GSP one."""
+    live = strip_padding(g.src, g.dst, g.w, g.ghost)
+    q_r = clock.run("select", modularity, *live, refined[0])
+    q_s = clock.run("select", modularity, *live, standard[0])
+    return refined if bool(q_r >= q_s) else standard
+
+
+def _partition_sharded(g, options, mesh, *, phase_seconds, telemetry):
+    """The mesh route of :func:`partition`."""
+    from repro_torch.core.distributed import louvain_sharded
+
+    algorithm = options.algorithm
+    if algorithm == "fast":
+        raise ValueError(
+            "algorithm='fast' (LPA) is single-device only — drop mesh=")
+    if options.scan == "dense":
+        raise ValueError("scan='dense' is single-device only")
+    tiered = louvain_sharded(g, tier_config(algorithm, options.louvain),
+                             mesh=mesh, telemetry=telemetry)
+    if algorithm == "standard":
+        return tiered
+    standard = louvain_sharded(g, _standard_config(options.louvain),
+                               mesh=mesh, telemetry=telemetry)
+    return _pick(g, tiered, standard, _Clock(phase_seconds, g.device))
+
+
+def partition(g, options, *, phase_seconds=None, telemetry=None):
     """Run one portfolio tier on one graph where it lies: ``(C, stats)``.
 
     The pass loops run ``options.scan``, where 'auto' means 'sort', as in
@@ -99,10 +136,17 @@ def partition(g, options, *, phase_seconds=None):
 
     ``phase_seconds`` (a dict or ``None``) collects the phases of the pass
     loop (both of max-quality's candidates add into the same keys), 'lpa'
-    for the fast tier, and 'select' for max-quality's two modularities.
+    for the fast tier, and 'select' for max-quality's two modularities;
+    with a mesh, 'select' alone.  ``telemetry`` goes to the sharded
+    driver.
     """
     algorithm = options.algorithm
     contract_for(algorithm)
+    mesh = options.resolved_mesh(g.device)
+    if mesh is not None:
+        return _partition_sharded(g, options, mesh,
+                                  phase_seconds=phase_seconds,
+                                  telemetry=telemetry)
     scan = "sort" if options.scan == "auto" else options.scan
     if algorithm == "fast":
         C, iters = _Clock(phase_seconds, g.device).run("lpa", lpa_run, g)
@@ -117,14 +161,11 @@ def partition(g, options, *, phase_seconds=None):
                              scan=scan, phase_seconds=phase_seconds)
     C_s, st_s = louvain_impl(g, _standard_config(options.louvain),
                              scan=scan, phase_seconds=phase_seconds)
-    live = strip_padding(g.src, g.dst, g.w, g.ghost)
-    clock = _Clock(phase_seconds, g.device)
-    q_r = clock.run("select", modularity, *live, C_r)
-    q_s = clock.run("select", modularity, *live, C_s)
-    return (C_r, st_r) if bool(q_r >= q_s) else (C_s, st_s)
+    return _pick(g, (C_r, st_r), (C_s, st_s),
+                 _Clock(phase_seconds, g.device))
 
 
-def run_detection(graph, options, *, phase_seconds=None):
+def run_detection(graph, options, *, phase_seconds=None, telemetry=None):
     """Partition + detector + modularity + contract: the body of
     :func:`repro_torch.core.api.detect`.
 
@@ -134,12 +175,17 @@ def run_detection(graph, options, *, phase_seconds=None):
     ``n_disconnected`` is always measured, so the tier's contract is
     checked, not assumed.  ``phase_seconds`` (a dict or ``None``) collects
     :func:`partition`'s phase times plus 'detector' and 'modularity'.
+    With a mesh the scan stays as given ('auto' means the sortscan, as in
+    the reference), and ``telemetry`` goes to the sharded driver.
     """
     from repro_torch.core.api import Detection
 
-    opts_run = dataclasses.replace(options, scan=options.resolved_scan(
-        graph.nv, graph.m_cap, device_type=graph.device.type))
-    C, stats = partition(graph, opts_run, phase_seconds=phase_seconds)
+    opts_run = options
+    if options.mesh is None:
+        opts_run = dataclasses.replace(options, scan=options.resolved_scan(
+            graph.nv, graph.m_cap, device_type=graph.device.type))
+    C, stats = partition(graph, opts_run, phase_seconds=phase_seconds,
+                         telemetry=telemetry)
     # int() and float() wait for the device, so the host clock is honest
     t0 = time.perf_counter()
     src, dst, w = strip_padding(graph.src, graph.dst, graph.w, graph.ghost)

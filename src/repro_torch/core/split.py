@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core._segments import INT_MAX
+from repro_torch.distributed import collectives as col
 from repro_torch.kernels import ops
 
 MODES = ("lp", "lpp", "pj")
@@ -48,7 +49,7 @@ def _same_community_adjacency(src, dst, C, adj=None) -> torch.Tensor:
 
 
 def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0,
-                 impl: str = "coo", adj=None):
+                 impl: str = "coo", adj=None, group=None):
     """Label every vertex with its (component ∩ community) representative.
 
     Args:
@@ -60,6 +61,12 @@ def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0,
       impl: 'coo' | 'dense' (see the module docstring).
       adj: the dense impl's bool[nv, nv] edge adjacency, shared by the
         caller, or ``None`` to assign it from the edges.
+      group: on a rank of this process group (the sharded driver), the
+        edges are this shard's, every out-edge of a vertex on one shard:
+        the per-round candidate takes a ``pmin``, the wake-up and
+        ``changed`` a ``pmax``, and every rank returns the single-device
+        labels.  ``None``: no collective.  The dense impl is single-device
+        only.
 
     Returns:
       (labels int32[nv], rounds as a Python int).  ``labels`` refines ``C``.
@@ -68,6 +75,8 @@ def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0,
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "dense" and group is not None:
+        raise ValueError("impl='dense' is single-device only (group=None)")
     nv = C.shape[0]
     ghost = nv - 1
     limit = max_iters if max_iters > 0 else nv
@@ -85,8 +94,8 @@ def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0,
         if impl == "dense":
             cand = torch.amin(torch.where(A_same, L[None, :], INT_MAX), dim=1)
         else:
-            cand = ops.segreduce_sorted(torch.where(same, L[dst], INT_MAX),
-                                        src, nv, op="min")
+            cand = col.pmin(ops.segreduce_sorted(
+                torch.where(same, L[dst], INT_MAX), src, nv, op="min"), group)
         L_new = torch.minimum(L, cand)
         if mode == "lpp":
             # pruned vertices are not recomputed this round (paper line 8)
@@ -100,11 +109,15 @@ def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0,
             if impl == "dense":
                 nbr = torch.any(A_same & moved[:, None], dim=0)
             else:
-                nbr = ops.segreduce_sorted(
+                nbr = col.pmax(ops.segreduce_sorted(
                     (moved[dst] & same).to(torch.int32), src, nv,
-                    op="max") > 0
+                    op="max"), group) > 0
             active = nbr | moved
-        changed = bool(moved.any())
+        if group is None:
+            changed = bool(moved.any())
+        else:
+            changed = bool(col.pmax(moved.any().to(torch.int32)[None],
+                                    group) > 0)
         L = L_new
         it += 1
     return L, it

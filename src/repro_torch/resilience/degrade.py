@@ -81,14 +81,14 @@ def lpa_result(graph_id: str, graph, *, options=None,
     portfolio dispatch — one code path with requested-tier LPA.
 
     ``options``: the service's :class:`repro_torch.core.api.DetectOptions`
-    (its other fields carry over; the algorithm is forced to ``'fast'``).
-    Runs on ``device`` (``None`` = CUDA, as ``detect()``), moving the
-    graph there first if needed.  The reference's ``mesh`` and
-    ``telemetry`` have no counterpart: the degraded path runs on one
-    device, and ``run_detection`` reads telemetry only on the sharded path
-    (ROADMAP A.12).  ``C`` comes back as host int32, as the reference's.
+    (its other fields carry over; the algorithm is forced to ``'fast'``
+    and the mesh is dropped: the degraded path runs on one device, as the
+    reference's).  Runs on ``device`` (``None`` = CUDA, as ``detect()``),
+    moving the graph there first if needed.  The reference's
+    ``telemetry`` has no counterpart: ``run_detection`` reads it only on
+    the sharded path.  ``C`` comes back as host int32, as the reference's.
     """
-    opts = (options or DetectOptions()).replace(algorithm="fast")
+    opts = (options or DetectOptions()).replace(algorithm="fast", mesh=None)
     det = run_detection(graph.to(resolve_device(device)), opts)
     return DegradedResult(
         graph_id=graph_id,

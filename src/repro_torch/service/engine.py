@@ -31,8 +31,8 @@ What the reference has and the port keeps in another form:
   TensorBoard trace handler.
 
 ``seg_impl``, ``seg_block_m`` and the Pallas autotuner have no counterpart
-(:meth:`seg_block_for` returns 0), and :meth:`detect_sharded` waits for
-ROADMAP A.12.
+(:meth:`seg_block_for` returns 0).  :meth:`detect_sharded` runs one graph
+over ``options.mesh`` (``core/distributed.py``).
 """
 from __future__ import annotations
 
@@ -272,8 +272,10 @@ class BatchedLouvainEngine:
 
     def _one(self, g: Graph, algorithm: str) -> dict:
         """One graph's ``detect()`` on the engine's device: labels (still
-        on the device) and host numbers."""
-        d = run_detection(g, self.options.replace(algorithm=algorithm))
+        on the device) and host numbers.  A batch never runs sharded (the
+        mesh is :meth:`detect_sharded`'s), as in the reference."""
+        d = run_detection(g, self.options.replace(algorithm=algorithm,
+                                                  mesh=None))
         return dict(
             C=d.labels,
             n_communities=int(d.n_communities),
@@ -329,11 +331,49 @@ class BatchedLouvainEngine:
         return self.detect_batch([g], algorithm=algorithm)[0]
 
     def detect_sharded(self, g: Graph) -> DetectResult:
-        """Single-graph detection sharded over a device mesh: not ported
-        yet (ROADMAP queue A, item 12)."""
-        raise NotImplementedError(
-            "detect_sharded waits for the sharded single-graph path "
-            "(ROADMAP queue A, item 12)")
+        """Single-graph detection sharded over ``options.mesh``: the
+        one-giant-graph mode for requests that dwarf the bucket ladder.
+
+        Runs ``run_detection`` with the mesh: the pass loops on the mesh's
+        ranks (``core/distributed.py:louvain_sharded``, the single-device
+        partition bit for bit; max-quality picks the better of its two
+        candidates, as the reference's engine does), the detector and
+        modularity on the engine's device.  The sharded telemetry (halo
+        bytes, ghost counts, per-shard sweeps) goes to the engine's hub.
+        The reference's ``DispatchInfo`` also carries ``capacity`` and
+        ``fill``, which the port's record does not.
+        """
+        if self.options.mesh is None:
+            raise ValueError(
+                "detect_sharded requires a mesh: construct the engine with "
+                "options=DetectOptions(mesh=...)")
+        alg = self.options.algorithm
+        if alg == "fast":
+            raise ValueError(
+                "algorithm='fast' (LPA) is single-device only — "
+                "detect_sharded serves standard/max-quality")
+        t_start = time.perf_counter()
+        d = run_detection(g.to(self.device), self.options,
+                          telemetry=self.telemetry)
+        t_call1 = time.perf_counter()
+        C = d.labels.cpu().numpy()
+        t_sync = time.perf_counter()
+        self.last_detect_info = DispatchInfo(
+            kind="detect", bucket=bucket_of(g), n=1, compile_hit=True,
+            t_start=t_start, t_call0=t_start, t_call1=t_call1,
+            t_sync=t_sync, algorithm=alg)
+        return DetectResult(
+            C=C,
+            n_communities=int(d.n_communities),
+            n_disconnected=d.n_disconnected,
+            fraction=d.fraction,
+            passes=int(d.stats["passes"]),
+            q=d.modularity,
+            sweeps=int(d.stats["li_total"]),
+            split_moved=int(d.stats["split_moved"]),
+            algorithm=alg,
+            contract=contract_for(alg),
+        )
 
     # -- batched warm updates -------------------------------------------------
     def update_batch(self, items: Sequence[UpdateItem], *, tau: float = 1e-3,

@@ -1012,3 +1012,49 @@ def test_ingest_window_planted_card_equals_cpu(cuda):
         assert np.array_equal(aa[k], ba[k]), k
     assert xa.graph.device.type == "cuda"
     _same_entry(xa, xb)
+
+
+# --- the sharded path: two ranks sharing the card over gloo ---------------
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import make_mesh
+
+    mesh = make_mesh(("cuda:0", "cuda:0"))
+    yield mesh
+    mesh.close()
+
+
+def _rank_launches(mesh):
+    """B.1 launches of each rank over the calls since ``reports`` was
+    cleared."""
+    return [sum(call[r]["segreduce_launches"] for call in mesh.reports)
+            for r in range(mesh.size)]
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_sharded_on_card_equals_single_device(card_mesh, split):
+    from repro_torch.core import louvain
+
+    g = rmat_graph(scale=10, edge_factor=8, seed=1, device="cuda")
+    cfg = LouvainConfig(split=split)
+    C1, s1 = louvain(g, cfg)
+    card_mesh.reports.clear()
+    Cs, ss = louvain(g, cfg, mesh=card_mesh)
+    assert card_mesh.backend == "gloo"
+    assert Cs.device == g.device and torch.equal(Cs, C1)
+    assert {k: ss[k] for k in s1} == s1 and ss["n_shards"] == 2
+    assert all(n > 0 for n in _rank_launches(card_mesh))
+
+
+@pytest.mark.parametrize("algorithm", ["standard", "max-quality"])
+def test_detect_with_card_mesh_equals_detect(card_mesh, algorithm):
+    g = sbm_graph(2048, 24, 0.12, 0.002, seed=2, device="cuda")[0]
+    opts = DetectOptions(algorithm=algorithm)
+    want = detect(g, options=opts)
+    got = detect(g, options=opts.replace(mesh=card_mesh))
+    assert torch.equal(got.labels, want.labels)
+    assert got.modularity == want.modularity
+    assert got.n_disconnected == want.n_disconnected == 0

@@ -296,6 +296,9 @@ def test_port_imports_neither_jax_nor_repro():
         "          'frontend', 'service', 'replay'):\n"
         "    assert 'repro_torch.service.' + n in names, names\n"
         "assert 'repro_torch.data.streams' in names, names\n"
+        "for n in ('core.distributed', 'graph.partition',\n"
+        "          'distributed.collectives', 'launch.mesh'):\n"
+        "    assert 'repro_torch.' + n in names, names\n"
         "from repro_torch.service import (AsyncCommunityService,\n"
         "    CommunityService, ServiceConfig, ServiceFrontend)\n"
         "for n in ('histogram', 'spans', 'sinks', 'prometheus'):\n"

@@ -241,14 +241,18 @@ def test_engine_options_vs_legacy_same_keys():
                                   "mesh"])
 def test_keywords_without_counterpart_raise(name):
     """The reference's knobs without a port field are not accepted, so
-    they are never ignored."""
+    they are never ignored.  ``mesh`` is a ``DetectOptions`` field (the
+    sharded path); as a flat keyword it raises like the others."""
     value = {"seg_impl": "xla", "block_m": 128, "seg_block_m": 128,
              "mesh": 2}[name]
     g = _port(_egos()[0])
     with pytest.raises(TypeError, match="unexpected keyword"):
         t_api.detect(g, device="cpu", **{name: value})
-    with pytest.raises(TypeError):
-        DetectOptions(**{name: value})
+    if name == "mesh":
+        assert DetectOptions(mesh=2).mesh == 2
+    else:
+        with pytest.raises(TypeError):
+            DetectOptions(**{name: value})
     with pytest.raises(TypeError, match="unexpected keyword"):
         _engine(**{name: value})
     with pytest.raises(TypeError, match="unexpected keyword"):
@@ -332,7 +336,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_detect_sharded_waits_for_a12():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """A.12 came (``tests/test_torch_sharded.py`` runs ``detect_sharded``
+    on CPU meshes): an engine without a mesh refuses it, as the
+    reference's does."""
+    with pytest.raises(ValueError, match="detect_sharded requires a mesh"):
         _engine().detect_sharded(_port(_egos()[0]))
 
 
