@@ -40,7 +40,10 @@ result line):
    service bucket (``sbm_graph(1024, 16, 0.2, 0.003, seed=3, n_cap=1024,
    m_cap=16384)``): for every tier and split policy, ``scan='dense'`` on
    the card, on the CPU and ``scan='sort'`` on the card all equal, each
-   card run with its wall time and segment-reduce launches;
+   card run with its wall time and segment-reduce launches (and the dense
+   half-sweep kernel's, ``csrc/dense_sweep.cu``, which the dense scan runs
+   on the card: held bit for bit to its plain version on the card and the
+   CPU at ``nv = 1025`` on six sweep states, with its time and bound);
    ``DetectOptions.resolved_scan`` against the reference's answers; and
    ``update_communities`` with a seeded churn batch (removals, wired
    additions, deletions, insertions) on that graph with each scan and on
@@ -174,6 +177,25 @@ result line):
    worker, passes and sweeps, and the host partition and pass seconds;
    with the halo-byte counter and each mesh's worker start-up time.  A
    failure of any rank fails the phase.
+10. Launch, examples and the harness, on the card.  (1) Each of the
+   eight drivers of ``python -m repro_torch.launch.serve_communities``
+   (the sync pump, ``--async``, ``--churn``, ``--replay``, ``--stream``,
+   ``--sharded`` on two ranks sharing ``cuda:0``, ``--chaos``,
+   ``--tiers``) in process with ``--smoke --device cuda``: every smoke
+   assertion holds; its wall time and B.1 launches (above 0; the sharded
+   driver's ranks too).  (2) Each of the six ``examples/torch_*.py`` with
+   ``--device cuda``, its own asserts, wall time and launches.  (3)
+   ``local_move`` from singletons on phase 4's graph with
+   ``seg_impl='auto'`` (the fused sweep) and ``'scatter'`` (the
+   reference's unfused one), auto, scatter, scatter, auto: the same C and
+   Sigma bits and ``l_i``; each run's wall and launches and the scatter /
+   auto ratio, the reference's paired sweep gate.  (4) The approximate
+   harness ``run_louvain_multidevice`` on two ranks sharing ``cuda:0``:
+   on phase 3's ``rmat_graph(scale=12, edge_factor=8, seed=1)`` its
+   labels and stats equal two CPU ranks', then once on phase 4's graph,
+   its wall, communities, Q and disconnected count (not phase 4's
+   partition: the harness is approximate, ROADMAP C.4), with the caller's
+   and each rank's launches.
 
 ``--profile`` adds a traced run of phase 4's ``detect()`` of each tier
 (device time by kernel, the device's busy share, and each segment-reduce
@@ -1002,8 +1024,11 @@ def dense_phase() -> int:
     the card, for every tier and split policy, all equal, and zero
     disconnected communities wherever the run promises it.  Each card run
     alone, with its wall time and segment-reduce launches.  Returns the
-    launches of the dense standard run."""
+    launches of the dense standard run: the segment reduce's and the dense
+    half-sweep kernel's."""
     from repro_torch.core import DetectOptions, LouvainConfig, detect
+    from repro_torch.kernels.dense_sweep import (dense_half_sweep_cuda,
+                                                 dense_modularity_cuda)
 
     g_card, g_cpu = dense_graph("cuda"), dense_graph("cpu")
     n_live = int((g_cpu.src < g_cpu.n_cap).sum())
@@ -1017,8 +1042,12 @@ def dense_phase() -> int:
             return DetectOptions(algorithm=algorithm, scan=scan,
                                  louvain=LouvainConfig(split=split))
 
+        n_dense = (dense_half_sweep_cuda.launches,
+                   dense_modularity_cuda.launches)
         dense, wall, n, _ = timed_path(
             lambda: detect(g_card, options=opts("dense")))
+        n_dense = (dense_half_sweep_cuda.launches - n_dense[0],
+                   dense_modularity_cuda.launches - n_dense[1])
         sort, wall_sort, n_sort, _ = timed_path(
             lambda: detect(g_card, options=opts("sort")))
         on_cpu = detect(g_cpu, options=opts("dense"), device="cpu")
@@ -1027,15 +1056,155 @@ def dense_phase() -> int:
             f"sort (labels, stats, Q bits)={equal}  communities="
             f"{dense.n_communities}  disconnected={dense.n_disconnected}  "
             f"sweeps={dense.stats['li_total']}  Q={dense.modularity:.9f}  "
-            f"card wall dense={wall} s ({n} segreduce launches)  sort="
-            f"{wall_sort} s ({n_sort})")
+            f"card wall dense={wall} s ({n} segreduce launches, "
+            f"{n_dense[0]} dense_half_sweep, {n_dense[1]} dense_modularity)"
+            f"  sort={wall_sort} s ({n_sort})")
         if not equal or (promises_connected(algorithm, split)
                          and dense.n_disconnected):
             raise AssertionError(
                 f"dense scan mismatch on {DENSE_GRAPH}, {algorithm}/{split}")
         if (algorithm, split) == ("standard", "sp-pj"):
-            standard_launches = n
+            standard_launches = n, n_dense
     return standard_launches
+
+
+DENSE_SOURCE = "src/repro_torch/kernels/csrc/dense_sweep.cu"
+# the function it replaces: the reference's dense half-sweep, XLA code
+DENSE_REPLACES = "src/repro/core/local_move.py:361"
+# and the reference's realized modularity, which its sweep loop calls
+DENSE_Q_REPLACES = "src/repro/core/local_move.py:124"
+F32_FLOPS_PER_S = 67e12          # H100 SXM float32 rate off the tensor cores
+
+
+def dense_sweep_phase(launches) -> list:
+    """Phase 3, the dense scan's kernels (``csrc/dense_sweep.cu``) at their
+    full width, ``nv = 1025``, on a seeded sweep state: the half-sweep's
+    every output bit for bit against its plain version on the card and on
+    a CPU copy, with and without targets and anchoring and on refine's
+    masked weights, and the loop's realized modularity the same way; each
+    one's time, its plain version's and its bound.  ``launches`` is their
+    counts in the dense standard ``detect()`` of :func:`dense_phase`.
+    Returns their JSON entries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.local_move import (_half_sweep_dense,
+                                             _half_sweep_dense_plain,
+                                             realized_modularity)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dense_sweep import (dense_modularity_cuda,
+                                                 edge_rows)
+
+    if min(launches) == 0:
+        raise AssertionError("the dense standard detect() launched no "
+                             f"dense_sweep kernel: {launches}")
+    g = {d: dense_graph(d) for d in ("cuda", "cpu")}
+    nv, m = g["cpu"].nv, g["cpu"].m_cap
+    rng = np.random.default_rng(11)
+    C = rng.integers(0, nv - 1, nv).astype(np.int32)
+    C[nv - 1] = nv - 1
+    movable = rng.random(nv) < 0.5
+    target = rng.random(nv) < 0.5
+    part = rng.integers(0, 16, nv).astype(np.int32)    # refine's mask
+    cases = []
+    for masked in (False, True):
+        for t, a in ((True, True), (False, True), (False, False)):
+            args = {}
+            for d in ("cuda", "cpu"):
+                gd = g[d]
+                Cd = torch.from_numpy(C).to(d)
+                pd = torch.from_numpy(part).to(d)
+                w = torch.where(pd[gd.src] == pd[gd.dst], gd.w, 0.0) \
+                    if masked else gd.w
+                K = ops.segreduce_sorted(gd.w, gd.src, nv, op="sum")
+                Sigma = ops.segment_sum_inorder(K, Cd, nv)
+                args[d] = ((gd.src, gd.dst, w, Cd, K, Sigma,
+                            gd.total_weight_2m(),
+                            torch.from_numpy(movable).to(d)),
+                           dict(target_ok=torch.from_numpy(target).to(d)
+                                if t else None, anchored=a))
+            got = _half_sweep_dense(*args["cuda"][0], **args["cuda"][1])
+            plain = _half_sweep_dense_plain(*args["cuda"][0],
+                                            **args["cuda"][1])
+            cpu = _half_sweep_dense(*args["cpu"][0], **args["cpu"][1])
+            equal = all(
+                same_bits(x, y) and same_bits(x, z)
+                if x.dtype == torch.float32 else
+                torch.equal(x.cpu(), y.cpu()) and torch.equal(x.cpu(),
+                                                              z.cpu())
+                for i, (x, y, z) in enumerate(zip(got, plain, cpu))
+                if i != 3)          # gain: torch.sum, its tree by device
+            name = (f"{'masked' if masked else 'weights'}, "
+                    f"{'targets' if t else 'no targets'}, "
+                    f"{'anchored' if a else 'all'}")
+            log(f"  dense_half_sweep {name}: kernel == plain on the card == "
+                f"plain on the CPU (C, Sigma bits, moved, want)={equal}  "
+                f"moved={int(got[2].sum())}")
+            if not equal:
+                raise AssertionError(f"dense_half_sweep {name}")
+            cases.append(args["cuda"])
+    (args, kw) = cases[0]
+    rows = edge_rows(args[0], nv)
+    ms = median_ms(lambda: _half_sweep_dense(*args, rows=rows, **kw))
+    plain_ms = median_ms(lambda: _half_sweep_dense_plain(*args, **kw))
+    # each input read once and each output written once: order, dst, w an
+    # edge; C, K, Sigma, movable, target_ok and row_ptr a vertex; C_new,
+    # Sigma_new, best, move, want a vertex.  Operations: Eq. 2 (eight
+    # float32 operations) on each cell that holds weight, the only cells
+    # whose score is read (W_all > 0 or W_frz > 0: at most m, counted on
+    # this case's edges), the edge folds (two adds an edge) and the Sigma
+    # recompute (nv adds).
+    e_src, e_dst, e_w, e_C = args[0], args[1], args[2], args[3]
+    held = (e_src != e_dst) & (e_w > 0)
+    cells = int(torch.unique(e_src[held].long() * nv
+                             + e_C[e_dst[held]].long()).numel())
+    nbytes = 12 * m + (4 + 4 + 4 + 1 + 1 + 4) * nv + (4 + 4 + 4 + 1 + 1) * nv
+    nops = 8 * cells + 2 * m + nv
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / F32_FLOPS_PER_S * 1e3
+    log(f"  dense_half_sweep at nv={nv}, m={m} ({cells} cells with weight): "
+        f"ms={ms}  plain_ms={plain_ms}  bound_ms={max(bytes_ms, ops_ms)} "
+        f"(bytes {bytes_ms}, operations {ops_ms})  launches in the dense "
+        f"standard detect()={launches}")
+    sweep_entry = dict(
+        name="dense_half_sweep", route="cuda", source=DENSE_SOURCE,
+        replaces=DENSE_REPLACES, launches=launches[0], max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None)
+
+    # the sweep loop's realized modularity, kernel vs plain, card and CPU
+    q = {}
+    for d in ("cuda", "cpu"):
+        gd = g[d]
+        Cd = torch.from_numpy(C).to(d)
+        K = ops.segreduce_sorted(gd.w, gd.src, nv, op="sum")
+        Sigma = ops.segment_sum_inorder(K, Cd, nv)
+        q[d] = (gd.src, gd.dst, gd.w, Cd, Sigma, gd.total_weight_2m())
+    got = dense_modularity_cuda(*q["cuda"])
+    plain = realized_modularity(*q["cuda"])
+    cpu = realized_modularity(*q["cpu"])
+    equal = same_bits(got, plain) and same_bits(got, cpu)
+    q_ms = median_ms(lambda: dense_modularity_cuda(*q["cuda"]))
+    q_plain_ms = median_ms(lambda: realized_modularity(*q["cuda"]))
+    # src, dst, w an edge and C, Sigma a vertex read once; one value
+    # written; an add an edge and a multiply and an add a vertex
+    q_bytes_ms = (12 * m + 8 * nv + 4) / HBM_BYTES_PER_S * 1e3
+    q_ops_ms = (m + 2 * nv) / F32_FLOPS_PER_S * 1e3
+    log(f"  dense_modularity at nv={nv}, m={m}: kernel == plain on the card "
+        f"== plain on the CPU (bits)={equal}  Q={float(got)!r}  ms={q_ms}  "
+        f"plain_ms={q_plain_ms}  bound_ms={max(q_bytes_ms, q_ops_ms)}  "
+        f"launches in the dense standard detect()={launches[1]}")
+    if not equal:
+        raise AssertionError("dense_modularity differs from its plain "
+                             "version")
+    q_entry = dict(
+        name="dense_modularity", route="cuda", source=DENSE_SOURCE,
+        replaces=DENSE_Q_REPLACES, launches=launches[1], max_abs_err=0.0,
+        ms=q_ms, plain_ms=q_plain_ms, bound_ms=max(q_bytes_ms, q_ops_ms),
+        bound_by="bytes" if q_bytes_ms >= q_ops_ms else "operations",
+        library_ms=None)
+    return [sweep_entry, q_entry]
 
 
 def crossover_checks():
@@ -2741,6 +2910,203 @@ def sharded_phase(g, standard) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the launch CLI, the examples and the approximate harness, on
+# the card
+# ---------------------------------------------------------------------------
+
+CLI_MODES = ((), ("--async",), ("--churn",), ("--replay",), ("--stream",),
+             ("--sharded",), ("--chaos",), ("--tiers",))
+EXAMPLES = ("torch_quickstart", "torch_community_service",
+            "torch_dynamic_updates", "torch_telemetry_sinks",
+            "torch_community_timeline", "torch_chaos_replay")
+
+
+def cli_step(failures: list) -> dict:
+    """10.1: each of the CLI's eight drivers in process with ``--smoke
+    --device cuda``; every smoke assertion must hold.  A driver that fails
+    is appended to ``failures`` and the next one runs.  Returns the B.1
+    launches by driver (the ``--sharded`` ranks' apart)."""
+    import traceback
+
+    from repro_torch.launch import serve_communities as sc
+
+    launches = {}
+    for mode in CLI_MODES:
+        name = " ".join(mode) or "(default sync pump)"
+        try:
+            rep, wall, n, peak = timed_path(
+                lambda: sc.main([*mode, "--smoke", "--device", "cuda"]))
+        except Exception as e:    # noqa: BLE001 (reported, fails phase 10)
+            log(f"  10.1 serve_communities {name} --smoke: FAILED: {e!r}")
+            log(traceback.format_exc())
+            failures.append(f"10.1 {name}: {e!r}")
+            continue
+        ranks = (f"  ranks' segreduce launches="
+                 f"{rep['rank_segreduce_launches']}"
+                 if mode == ("--sharded",) else "")
+        log(f"  10.1 serve_communities {name} --smoke: wall={wall} s  "
+            f"segreduce launches={n}{ranks}  peak device memory="
+            f"{peak:.2f} GiB")
+        launches[f"serve_communities {name} --smoke"] = n
+        if mode == ("--sharded",):
+            if min(rep["rank_segreduce_launches"]) == 0:
+                raise AssertionError("10.1 --sharded: a rank launched no "
+                                     "segreduce kernel")
+            launches["serve_communities --sharded --smoke, ranks"] = \
+                rep["rank_segreduce_launches"]
+    return launches
+
+
+def examples_step() -> dict:
+    """10.2: each ``examples/torch_*.py`` on the card (its own asserts)."""
+    import importlib.util
+
+    launches = {}
+    for name in EXAMPLES:
+        path = ROOT / "examples" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _, wall, n, peak = timed_path(lambda: mod.main(["--device", "cuda"]))
+        log(f"  10.2 examples/{name}.py: wall={wall} s  segreduce "
+            f"launches={n}  peak device memory={peak:.2f} GiB")
+        launches[f"examples/{name}.py"] = n
+    return launches
+
+
+def scatter_sweep_step(g) -> dict:
+    """10.3: ``local_move`` from singletons on the full-size graph, fused
+    (``seg_impl='auto'``) and unfused (``'scatter'``), in the order auto,
+    scatter, scatter, auto: C and Sigma the same bits, ``l_i`` equal; each
+    run's wall and launches, and the reference's paired sweep ratio."""
+    import torch
+
+    from repro_torch.core import local_move
+    from repro_torch.graph.container import strip_padding
+    from repro_torch.kernels import ops
+
+    src, dst, w = strip_padding(g.src, g.dst, g.w, g.ghost)
+    K = ops.segreduce_sorted(w, src, g.nv, op="sum")
+    two_m = g.total_weight_2m()
+    ids = torch.arange(g.nv, dtype=torch.int32, device="cuda")
+    runs = {"auto": [], "scatter": []}
+    out = {}
+    for impl in ("auto", "scatter", "scatter", "auto"):
+        (C, Sigma, li), wall, n, peak = timed_path(lambda: local_move(
+            src, dst, w, ids, K, K, two_m, tau=1e-2, seg_impl=impl))
+        runs[impl].append((wall, n))
+        log(f"  10.3 local_move seg_impl={impl!r}: wall={wall} s  l_i={li}"
+            f"  segreduce launches={n}  peak device memory={peak:.2f} GiB")
+        if impl in out:
+            continue
+        out[impl] = (C, Sigma, li)
+    (Ca, Sa, la), (Cs, Ss, ls) = out["auto"], out["scatter"]
+    equal = torch.equal(Ca, Cs) and same_bits(Sa, Ss) and la == ls
+    ratio = (statistics.median(t for t, _ in runs["scatter"])
+             / statistics.median(t for t, _ in runs["auto"]))
+    log(f"    scatter == auto (C, Sigma bits, l_i)={equal}  scatter / auto "
+        f"wall (median of 2)={ratio}")
+    if not equal:
+        raise AssertionError("10.3: the scatter sweep differs from the "
+                             "fused one")
+    return {"local_move seg_impl='auto', full size": runs["auto"][0][1],
+            "local_move seg_impl='scatter', full size":
+                runs["scatter"][0][1]}
+
+
+def harness_run(mesh, g):
+    """``run_louvain_multidevice`` once on ``mesh`` with the rank reports
+    cleared: ``(labels, stats, wall, caller launches, rank launches)``."""
+    from repro_torch.core.distributed import run_louvain_multidevice
+
+    mesh.reports.clear()
+    (C, st), wall, n, _ = timed_path(
+        lambda: run_louvain_multidevice(g, mesh))
+    ranks = [sum(c[r]["segreduce_launches"] for c in mesh.reports)
+             for r in range(mesh.size)]
+    if min(ranks) == 0:
+        raise AssertionError(f"a rank launched no segreduce kernel: {ranks}")
+    return C, st, wall, n, ranks
+
+
+def harness_step(g) -> dict:
+    """10.4: the approximate harness on 2 ranks sharing ``cuda:0`` (gloo):
+    on phase 3's R-MAT its labels and stats equal a 2-rank CPU mesh's;
+    then once at full size, its wall, communities, Q and disconnected
+    count (not phase 4's: ROADMAP C.4)."""
+    import torch
+
+    from repro_torch.core import disconnected_communities
+    from repro_torch.core.distributed import run_louvain_multidevice
+    from repro_torch.core.modularity import modularity
+    from repro_torch.graph import rmat_graph
+    from repro_torch.graph.container import strip_padding
+    from repro_torch.launch import make_host_mesh, make_mesh
+
+    card = make_mesh(("cuda:0", "cuda:0"))
+    cpu = make_host_mesh(2, device="cpu")
+    launches = {}
+    try:
+        small = "rmat_graph(scale=12, edge_factor=8, seed=1)"
+        gs = rmat_graph(scale=12, edge_factor=8, seed=1, device="cuda")
+        C, st, wall, n, ranks = harness_run(card, gs)
+        Cc, stc = run_louvain_multidevice(gs.to("cpu"), cpu)
+        equal = torch.equal(C.cpu(), Cc) and st == stc
+        log(f"  10.4 run_louvain_multidevice {small}, 2 ranks on cuda:0 "
+            f"(gloo): wall={wall} s  communities={st['n_communities']}  "
+            f"first pass l_i={st['first_pass_li']} communities="
+            f"{st['first_pass_comms']}  == 2 CPU ranks (labels, stats)="
+            f"{equal}  caller's segreduce launches={n}  ranks'={ranks}")
+        if not equal:
+            raise AssertionError("10.4: the card harness differs from CPU "
+                                 "ranks")
+        launches[f"run_louvain_multidevice {small}, caller"] = n
+        launches[f"run_louvain_multidevice {small}, ranks"] = ranks
+        C, st, wall, n, ranks = harness_run(card, g)
+        live = strip_padding(g.src, g.dst, g.w, g.ghost)
+        q = float(modularity(*live, C))
+        n_dis = int(disconnected_communities(*live, C, g.n_nodes)[
+            "n_disconnected"])
+        log(f"  10.4 run_louvain_multidevice full size, 2 ranks on cuda:0: "
+            f"wall={wall} s  communities={st['n_communities']}  Q={q!r}  "
+            f"disconnected={n_dis}  passes after the first={st['passes']}  "
+            f"first pass l_i={st['first_pass_li']} communities="
+            f"{st['first_pass_comms']}  caller's segreduce launches={n}  "
+            f"ranks'={ranks}")
+        launches["run_louvain_multidevice full size, caller"] = n
+        launches["run_louvain_multidevice full size, ranks"] = ranks
+    finally:
+        card.close()
+        cpu.close()
+    return launches
+
+
+def launch_phase(g) -> dict:
+    """Phase 10: the CLI's drivers, the examples, the scatter sweep and
+    the approximate harness on the card.  Every step runs, and the phase
+    fails at its end if any of them failed.  Returns the B.1 launches by
+    path."""
+    import traceback
+
+    launches, failures = {}, []
+    for step, fn in (("10.1", lambda: cli_step(failures)),
+                     ("10.2", examples_step),
+                     ("10.3", lambda: scatter_sweep_step(g)),
+                     ("10.4", lambda: harness_step(g))):
+        t0 = time.perf_counter()
+        try:
+            launches.update(fn())
+        except Exception as e:    # noqa: BLE001 (reported, fails phase 10)
+            log(f"  step {step}: FAILED: {e!r}")
+            log(traceback.format_exc())
+            failures.append(f"{step}: {e!r}")
+        log(f"  step {step}: {time.perf_counter() - t0} s")
+    if failures:
+        raise AssertionError("phase 10: " + "; ".join(failures))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=21,
@@ -2796,7 +3162,8 @@ def main(argv=None) -> int:
 
     log("phase 3: end to end, small, card vs CPU")
     small_phase()
-    dense_launches = dense_phase()
+    dense_launches, dense_sweep_launches = dense_phase()
+    dense_entries = dense_sweep_phase(dense_sweep_launches)
     crossover_checks()
     update_dense_launches = dynamic_small_phase()
 
@@ -2858,9 +3225,14 @@ def main(argv=None) -> int:
     by_path.update(sharded_phase(g, res))
     log(f"  phase 9: {time.perf_counter() - t0} s")
 
+    log("phase 10: launch, examples and the harness, on the card")
+    t0 = time.perf_counter()
+    by_path.update(launch_phase(g))
+    log(f"  phase 10: {time.perf_counter() - t0} s")
+
     entry["launches"] = launches
     entry["launches_by_path"] = by_path
-    log(json.dumps({"kernels": [entry] + api_entries}))
+    log(json.dumps({"kernels": [entry] + api_entries + dense_entries}))
     log(f"chip_smoke total: {time.perf_counter() - t_start} s")
     log(card)
     # the run uses one card, whatever else the machine holds

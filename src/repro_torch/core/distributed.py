@@ -35,9 +35,17 @@ and ``x + 0.0 == x``; Sigma is not merged but recomputed on every rank
 from the replicated K and labels; label and flag merges are integer sums
 of disjoint rows and min/max.
 
-``run_louvain_multidevice``, ``community_pass`` and
-``build_community_step``, the reference's approximate harness, wait for
-their readers (ROADMAP A.13).
+The reference's earlier, approximate scale path lives here too, for its
+readers (the scaling harness): :func:`run_louvain_multidevice` runs pass 1
+sharded through :func:`build_community_step` (a :func:`community_pass` a
+rank, on the reference's padded ``[S, m_shard]`` shards with their
+``v_lo``/``v_hi`` ownership, no global edge slots, split to the fixpoint
+and a *shard-local* aggregation), gathers the super-edges with
+cross-shard duplicates kept as parallel edges, and runs the single-device
+``louvain`` on that super-graph.  Its labels are NOT the single-device
+partition (ROADMAP C.4): the parallel edges fold in another order and the
+later passes start from another graph.  Use :func:`louvain_sharded` where
+the labels matter.
 """
 from __future__ import annotations
 
@@ -55,8 +63,9 @@ from repro_torch.core.louvain import (LouvainConfig, _check_split,
                                       refine_labels)
 from repro_torch.core.split import split_labels
 from repro_torch.distributed import collectives as col
-from repro_torch.graph.container import strip_padding
-from repro_torch.graph.partition import shard_edge_ranges, shard_vertex_roles
+from repro_torch.graph.container import Graph, strip_padding
+from repro_torch.graph.partition import (partition_edges_by_src,
+                                         shard_edge_ranges, shard_vertex_roles)
 from repro_torch.kernels import ops
 from repro_torch.kernels.segsum import segreduce_sorted_cuda
 from repro_torch.launch.mesh import MeshError, resolve_mesh
@@ -276,3 +285,187 @@ def louvain_sharded(g, cfg: LouvainConfig | None = None, *, mesh,
                  ghost_vertices=sum(r["passes"][-1]["n_ghosts"]
                                     for r in reports) if emit else 0)
     return torch.from_numpy(r0["labels"]).to(g.device), stats
+
+
+# --------------------------------------------------------------------------
+# The approximate harness (the reference's earlier scale path; see the
+# module docstring): pass 1 sharded with shard-local aggregation, the rest
+# on one device.  Not the single-device partition (ROADMAP C.4).
+# --------------------------------------------------------------------------
+
+def community_pass(src, dst, w, v_lo, v_hi, two_m, n_nodes, *, nv: int,
+                   group, move_iters: int, split_iters: int,
+                   tau: float = 1e-2, split_mode: str = "pj",
+                   prune: bool = True):
+    """One GSP-Louvain pass on this rank's shard of ``group`` (a
+    ``Mesh.run`` job's body): the shard's padded edges ``src``/``dst``/
+    ``w`` (``[m_shard]``), its owned vertex range ``[v_lo, v_hi)``, the
+    replicated 2m (a 0-dim float32 tensor) and vertex count.
+
+    K is the shard's in-order fold merged by a disjoint-support ``psum``;
+    the local move runs with ``owned`` and ``group`` but no global edge
+    slots (its modularity sums by vertex, as the reference's does here);
+    the split runs with ``group`` to ``split_iters`` rounds (0: the
+    fixpoint); ``aggregate`` runs on this shard's edges alone.  Returns
+    ``(C_dense replicated, n_comms, l_i, nsrc, ndst, nw)``, the last three
+    this shard's ``[m_shard]`` super-edges, ghost-padded.
+    """
+    ids = torch.arange(nv, dtype=torch.int32, device=src.device)
+    owned = (ids >= v_lo) & (ids < v_hi)
+    node_valid = ids < n_nodes
+    K = col.psum(ops.segreduce_sorted(w, src, nv, op="sum"), group)
+    C, _, li = local_move(src, dst, w, ids, K, K, two_m,
+                          tau=np.float32(tau), max_iters=move_iters,
+                          prune=prune, owned=owned, group=group)
+    labels, _ = split_labels(src, dst, w, C, mode=split_mode,
+                             max_iters=split_iters, group=group)
+    C_dense, n_comms = seg.renumber(labels, node_valid, nv)
+    nsrc, ndst, nw = aggregate(src, dst, w, C_dense)
+    return C_dense, n_comms, li, nsrc, ndst, nw
+
+
+@dataclasses.dataclass(frozen=True)
+class _StepJob:
+    """What every rank of a community step gets: the stacked shards on
+    the CPU (shared memory through the queue), the scalars, the pass's
+    settings."""
+
+    src: torch.Tensor        # int32[S, m_shard]
+    dst: torch.Tensor
+    w: torch.Tensor          # float32[S, m_shard]
+    v_lo: torch.Tensor       # int32[S]
+    v_hi: torch.Tensor
+    two_m: float             # the float32 2m
+    n_nodes: int
+    nv: int
+    move_iters: int
+    split_iters: int
+    split_mode: str
+    prune: bool
+    t_sent: float
+
+
+def _rank_step(ctx, job: _StepJob) -> dict:
+    """:func:`community_pass` on this rank's row (a ``Mesh.run`` job).
+    Returns this rank's report, in the shape of the sharded driver's (one
+    pass), with its super-edges on the CPU; rank 0's carries the labels."""
+    t_start = time.perf_counter()
+    segreduce_sorted_cuda.launches = 0
+    col.all_reduce.calls = col.all_reduce.bytes = 0
+    dev, r = ctx.device, ctx.rank
+    cuda = dev.type == "cuda"
+    src, dst, w = (t[r].to(dev) for t in (job.src, job.dst, job.w))
+    if cuda:
+        torch.cuda.synchronize(dev)
+    transfer_s = time.perf_counter() - job.t_sent
+    two_m = torch.tensor(job.two_m, dtype=torch.float32, device=dev)
+    t1 = time.perf_counter()
+    C_dense, n_comms, li, nsrc, ndst, nw = community_pass(
+        src, dst, w, int(job.v_lo[r]), int(job.v_hi[r]), two_m,
+        job.n_nodes, nv=job.nv, group=ctx.group,
+        move_iters=job.move_iters, split_iters=job.split_iters,
+        split_mode=job.split_mode, prune=job.prune)
+    out = dict(n_comms=int(n_comms), li=li, nsrc=nsrc.cpu(),
+               ndst=ndst.cpu(), nw=nw.cpu())
+    if r == 0:
+        out["C"] = C_dense.cpu()
+    t2 = time.perf_counter()
+    m_rank = int(torch.count_nonzero(src < job.nv - 1))
+    return dict(
+        rank=r, device=str(dev), wall_s=t2 - t_start, transfer_s=transfer_s,
+        passes=[dict(t0=t_start, t1=t1, t2=t2, li=li,
+                     m_total=int(job.src.shape[1]), m_rank=m_rank)],
+        segreduce_launches=segreduce_sorted_cuda.launches if cuda else 0,
+        all_reduce_calls=col.all_reduce.calls,
+        all_reduce_bytes=col.all_reduce.bytes, out=out)
+
+
+def build_community_step(mesh, *, n_cap: int, m_shard: int,
+                         move_iters: int = 4, split_iters: int = 8,
+                         split_mode: str = "pj", prune: bool = True):
+    """The distributed pass of the approximate harness on ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh`, one shard a rank).
+
+    Returns a plan ``dict(fn=..., nv=n_cap + 1, n_shards=S)``.  One call
+    ``fn(src, dst, w, v_lo, v_hi, two_m, n_nodes)``, with the stacked
+    shards of ``partition_edges_by_src`` (``[S, m_shard]`` int32/float32
+    and ``[S]`` int32 tensors), 2m and the vertex count, runs
+    :func:`community_pass` on every rank and returns ``(C, n_comms, l_i,
+    nsrc, ndst, nw)``: the replicated dense labels, the community count
+    and the local move's ``l_i`` (Python ints), and the stacked
+    ``[S, m_shard]`` super-edges, all on ``src``'s device.  Each rank's
+    report (without its arrays) is appended to ``mesh.reports``.  The
+    reference's ``args``, ``in_shardings`` and ``out_shardings`` belong to
+    ``jax.jit`` and have no counterpart.
+    """
+    S, nv = mesh.size, n_cap + 1
+
+    def fn(src, dst, w, v_lo, v_hi, two_m, n_nodes):
+        if tuple(src.shape) != (S, m_shard):
+            raise ValueError(f"shards must be [{S}, {m_shard}], got "
+                             f"{list(src.shape)}")
+        dev = src.device
+        # copies of their own, which the queue moves to shared memory
+        cpu = [torch.as_tensor(t).to("cpu", copy=True)
+               for t in (src, dst, w, v_lo, v_hi)]
+        mesh.start()   # so that the job's transfer time leaves start-up out
+        job = _StepJob(*cpu, two_m=float(two_m), n_nodes=int(n_nodes),
+                       nv=nv, move_iters=move_iters, split_iters=split_iters,
+                       split_mode=split_mode, prune=prune,
+                       t_sent=time.perf_counter())
+        reports = mesh.run(_rank_step, job)
+        outs = [r.pop("out") for r in reports]
+        if any((o["n_comms"], o["li"]) != (outs[0]["n_comms"], outs[0]["li"])
+               for o in outs):
+            raise MeshError(f"the ranks of mesh {mesh.devices} disagree: "
+                            f"{[(o['n_comms'], o['li']) for o in outs]}")
+        mesh.reports.append(reports)
+        stack = [torch.stack([o[k] for o in outs]).to(dev)
+                 for k in ("nsrc", "ndst", "nw")]
+        return (outs[0]["C"].to(dev), outs[0]["n_comms"], outs[0]["li"],
+                *stack)
+
+    return dict(fn=fn, nv=nv, n_shards=S)
+
+
+def run_louvain_multidevice(g, mesh, cfg: LouvainConfig | None = None):
+    """Multi-pass GSP-Louvain through the approximate harness: pass 1
+    sharded over ``mesh`` by :func:`build_community_step` (``tau`` 1e-2,
+    the split to its fixpoint in ``cfg.split``'s mode, ``pj`` where it
+    names none), the shards' super-edges gathered by a stable sort on
+    their source (cross-shard duplicates stay parallel edges), then the
+    single-device ``louvain`` with ``cfg`` on that super-graph, on ``g``'s
+    device.  ``mesh``: a :class:`~repro_torch.launch.mesh.Mesh` or an int,
+    as in :func:`louvain_sharded`.
+
+    Returns ``(C, stats)``: ``C2[C1]`` and the single-device stats of the
+    later passes plus ``first_pass_li`` and ``first_pass_comms``.  Not the
+    single-device partition (ROADMAP C.4).
+    """
+    from repro_torch.core.louvain import louvain
+
+    cfg = cfg if cfg is not None else LouvainConfig()
+    mesh = resolve_mesh(mesh, g.device)
+    dev = g.device
+    parts = partition_edges_by_src(g, mesh.size)
+    plan = build_community_step(
+        mesh, n_cap=g.n_cap, m_shard=parts["src"].shape[1],
+        move_iters=cfg.max_iters, split_iters=0,
+        split_mode=cfg.split.split("-")[1] if "-" in cfg.split else "pj")
+    # the shards go to the ranks from the host, where they were cut
+    C1, n1, li, nsrc, ndst, nw = plan["fn"](
+        *(torch.from_numpy(parts[k])
+          for k in ("src", "dst", "w", "v_lo", "v_hi")),
+        g.total_weight_2m(), int(g.n_nodes))
+    # gather the super-graph (cross-shard duplicates act as parallel
+    # edges, i.e. summed weights, for every later step)
+    C1 = C1.to(dev)
+    flat_src, flat_dst, flat_w = (t.reshape(-1).to(dev)
+                                  for t in (nsrc, ndst, nw))
+    order = torch.sort(flat_src, stable=True)[1]
+    g2 = Graph(src=flat_src[order], dst=flat_dst[order], w=flat_w[order],
+               n_nodes=torch.tensor(n1, dtype=torch.int32, device=dev),
+               n_cap=g.n_cap, m_cap=flat_src.shape[0])
+    C2, stats = louvain(g2, cfg, device=dev)
+    stats = dict(stats, first_pass_li=li, first_pass_comms=n1)
+    return C2[C1], stats

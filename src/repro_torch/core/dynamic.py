@@ -33,7 +33,9 @@ fixed order (``ops.segreduce_sorted``, ``ops.segment_sum_inorder``,
 ``ops.sum_inorder``), and the boolean screening and wake-ups are exact in
 any order.  :func:`update_communities` runs both halves.
 
-The reference's ``seg_impl`` and ``block_m`` knobs have no counterpart:
+Of the reference's ``seg_impl`` values, :func:`warm_local_move` takes
+``'auto'`` (the fused sweep) and ``'scatter'`` (the unfused one, the same
+bits); ``'xla'``, ``'pallas'`` and ``block_m`` have no counterpart, since
 dispatch is by device (``kernels/ops.py``).  Its jit/vmap batching of
 :func:`warm_update` comes with the batched engine (ROADMAP queue A, item 8).
 """
@@ -555,7 +557,8 @@ def affected_vertices(g: Graph, C, touched) -> torch.Tensor:
 
 
 def warm_local_move(src, dst, w, C_prev, two_m, active0, *, tau=1e-3,
-                    max_iters: int = 10, scan: str = "sort", adj=None):
+                    max_iters: int = 10, scan: str = "sort", adj=None,
+                    seg_impl: str = "auto"):
     """The local move warm-started from ``C_prev`` with the pruning mask
     seeded by the screening set ``active0``.
 
@@ -563,8 +566,8 @@ def warm_local_move(src, dst, w, C_prev, two_m, active0, *, tau=1e-3,
     awake while a neighbour moved or it is still active and wants a move.
     K is the in-order sum keyed by the sorted ``src`` (every rewrite
     re-sorts the edges) and Sigma the in-order sum of K by ``C_prev``.
-    ``scan`` and ``adj`` as in :func:`repro_torch.core.local_move.
-    local_move`.  Returns ``(C, Sigma, sweeps)``: the best realized
+    ``scan``, ``adj`` and ``seg_impl`` as in
+    :func:`repro_torch.core.local_move.local_move`.  Returns ``(C, Sigma, sweeps)``: the best realized
     partition, its community weights and the sweeps run.
     """
     nv = C_prev.shape[0]
@@ -576,7 +579,7 @@ def warm_local_move(src, dst, w, C_prev, two_m, active0, *, tau=1e-3,
     C, Sigma, _, it = _move_loop(
         src, dst, w, C0, K, Sigma0, two_m, tau=tau, max_iters=max_iters,
         phases=SYNC_PHASES["handshake"], prune=True, active0=active0,
-        warm=True, scan=scan, adj=adj)
+        warm=True, scan=scan, adj=adj, seg_impl=seg_impl)
     return C, Sigma, it
 
 

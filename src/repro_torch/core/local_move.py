@@ -25,6 +25,11 @@ fixed-order trees of in-order folds (``ops.sum_inorder``): the same bits
 on the card and on the CPU.  They round like any float32 sum once they
 pass 2**24, so they need not equal the reference's ``jnp.sum``, which
 folds in another order.
+
+``seg_impl='scatter'`` runs the reference's unfused sweep,
+:func:`_half_sweep_scatter` (separate run sums and run fields, then
+reductions by run vertex), the paired baseline of the fused one: the same
+bits, on the same kernel.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ import torch
 from repro_torch.core import _segments as seg
 from repro_torch.distributed import collectives as col
 from repro_torch.kernels import ops
+from repro_torch.kernels.dense_sweep import (dense_half_sweep_cuda,
+                                             dense_modularity_cuda, edge_rows)
 
 NEG = float("-inf")
 _U32 = 0xFFFFFFFF
@@ -47,6 +54,16 @@ def _mul_u32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _U32
 
 
+def _parity(ids: torch.Tensor, salts) -> torch.Tensor:
+    h = (_mul_u32(ids.to(torch.int64) & _U32, 0x9E3779B1) + salts) & _U32
+    h = _mul_u32(h ^ (h >> 16), 0x45D9F3B)
+    return ((h >> 13) & 1).to(torch.int32)
+
+
+def _salt(it: int, mul: int) -> int:
+    return ((int(it) & _U32) * mul) & _U32
+
+
 def _hash_parity(ids: torch.Tensor, it: int) -> torch.Tensor:
     """Iteration-salted pseudo-random parity bit per id (int32).
 
@@ -54,10 +71,16 @@ def _hash_parity(ids: torch.Tensor, it: int) -> torch.Tensor:
     mask after every multiply, add and shift.  Salting with the iteration
     re-rolls the mover/target bipartition every sweep (see the reference).
     """
-    salt = ((int(it) & _U32) * 0x85EBCA77) & _U32
-    h = (_mul_u32(ids.to(torch.int64) & _U32, 0x9E3779B1) + salt) & _U32
-    h = _mul_u32(h ^ (h >> 16), 0x45D9F3B)
-    return ((h >> 13) & 1).to(torch.int32)
+    return _parity(ids, _salt(it, 0x85EBCA77))
+
+
+def _parity_table(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``_hash_parity(ids, it)`` for every ``it`` in ``range(n)`` as one
+    int32 ``[n, len(ids)]`` table, in the same integer operations: a loop
+    of small sweeps reads a row a sweep instead of hashing again."""
+    salts = torch.tensor([_salt(it, 0x85EBCA77) for it in range(n)],
+                         dtype=torch.int64, device=ids.device)[:, None]
+    return _parity(ids, salts)
 
 
 def realized_modularity(src, dst, w, C, Sigma, two_m, *, group=None,
@@ -74,12 +97,20 @@ def realized_modularity(src, dst, w, C, Sigma, two_m, *, group=None,
     ``sum_inorder``'s tree depends on the length, so the vector must be
     the whole one.  A ``psum`` of per-rank scalar partials would fold in
     another order.  Sigma is replicated, so its sum needs no collective.
+    Without ``gidx`` (the approximate harness, ``community_pass``) the
+    internal weight is summed by vertex, as the reference's is there.
     """
     w_in = torch.where(C[src] == C[dst], w, 0.0)
-    if group is not None:
+    if group is not None and gidx is not None:
         full = torch.zeros(m_total + 1, dtype=torch.float32, device=C.device)
         full[gidx.long()] = w_in
         w_in = col.psum(full, group)[:m_total]
+    elif group is not None:
+        # the approximate harness, which has no global slots (as in the
+        # reference): each vertex's internal weight, merged by a
+        # disjoint-support psum, then summed over the vertices
+        w_in = col.psum(ops.segreduce_sorted(w_in, src, C.shape[0],
+                                             op="sum"), group)
     internal = ops.sum_inorder(w_in)
     sig2 = ops.sum_inorder(Sigma * Sigma)
     return internal / two_m - sig2 / (two_m * two_m)
@@ -174,8 +205,89 @@ def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
     return C_new, Sigma_new, move, gain, want
 
 
+def _half_sweep_scatter(src, dst, w, C, K, Sigma, two_m, movable,
+                        target_ok=None, anchored=True, owned=None,
+                        group=None):
+    """The reference's unfused sweep (``seg_impl='scatter'``): the same
+    contract and the same five results as :func:`_half_sweep`, bit for
+    bit, and like the reference's it needs no sorted ``src``.
+
+    Its steps are the reference's: a stable sort of the edges by ``(src,
+    C[dst])`` carrying both weight channels, two separate in-order run
+    sums, the run fields (vertex and community of each run), K_own as a
+    segment sum by run vertex, Eq.-2 scoring per run, two segment maxima
+    (``want`` and ``best``), the segment-min argmax and the Sigma
+    recompute.  The reference reduces by run vertex with
+    ``jax.ops.segment_*``; here the run vertices are sorted (runs follow
+    the ``(src, C[dst])`` order, and unused run slots hold the ghost id,
+    the largest), so every such reduction is the sorted segment-reduce
+    kernel's, and the Sigma recompute keyed by the unsorted ``C_new`` is
+    the in-order one of :func:`_half_sweep`.  No float atomic decides
+    anything.  ``owned`` and ``group`` as in :func:`_half_sweep`.
+    """
+    nv = C.shape[0]
+    m_cap = src.shape[0]
+    ghost = nv - 1
+
+    # --- scanCommunities: sort by (src, C[dst]) and reduce runs ----------
+    cd = C[dst]
+    not_self = src != dst  # exclude self-loops from scan (paper Alg. 4)
+    w_all = torch.where(not_self, w, 0.0)
+    w_frozen = (torch.where(not_self & ~movable[dst], w, 0.0)
+                if anchored else w_all)
+    s_src, s_cd, s_wf, s_wa = seg.sort_by_key2(src, cd, w_frozen, w_all)
+    starts = seg.run_starts(s_src, s_cd)
+    rid = seg.run_ids(starts)
+    W_ic = seg.runs_reduce(s_wf, rid, m_cap)
+    W_ic_all = seg.runs_reduce(s_wa, rid, m_cap)
+    i_run, run_valid = seg.run_field(s_src, starts, rid, m_cap, ghost)
+    c_run, _ = seg.run_field(s_cd, starts, rid, m_cap, ghost)
+
+    # --- K_{i->d}: true weight to own community (excluding self) ---------
+    own = (c_run == C[i_run]) & run_valid
+    K_own = ops.segreduce_sorted(torch.where(own, W_ic_all, 0.0), i_run, nv,
+                                 op="sum")
+
+    # --- delta-modularity per candidate run (paper Eq. 2) ----------------
+    Ki = K[i_run]
+    d_of_i = C[i_run]
+    dq = (
+        2.0 * (W_ic_all - K_own[i_run]) / two_m
+        - 2.0 * Ki * (Ki + Sigma[c_run] - Sigma[d_of_i]) / (two_m * two_m)
+    )
+    geom = run_valid & (i_run < ghost) & (c_run < ghost) & (c_run != d_of_i)
+    cand = geom & (W_ic > 0.0) & movable[i_run]
+    if owned is not None:
+        cand = cand & owned[i_run]
+    if target_ok is not None:
+        cand = cand & target_ok[c_run]
+    dq_all = torch.where(geom & (W_ic_all > 0.0), dq, NEG)
+    want = ops.segreduce_sorted(dq_all, i_run, nv, op="max") > 0.0
+    dq = torch.where(cand, dq, NEG)
+
+    # --- argmax per source vertex (min community id breaks ties) ---------
+    best = ops.segreduce_sorted(dq, i_run, nv, op="max")
+    is_best = cand & (dq >= best[i_run])
+    c_star = ops.segreduce_sorted(torch.where(is_best, c_run, seg.INT_MAX),
+                                  i_run, nv, op="min")
+    move = (best > 0.0) & (c_star < ghost)
+    C_new = torch.where(move, c_star, C)
+    gain = torch.sum(torch.where(move, best, 0.0))
+    if group is not None:
+        # merge the owners' decisions (each vertex owned by one shard)
+        C_new = col.psum(torch.where(owned, C_new, 0), group)
+        move = col.psum((owned & move).to(torch.int32), group) > 0
+        want = col.pmax((want & owned).to(torch.int32), group) > 0
+    C_new[ghost] = ghost
+
+    # --- exact Sigma recompute (synchronous, in-order) --------------------
+    Sigma_new = ops.segment_sum_inorder(K, C_new, nv)
+    return C_new, Sigma_new, move, gain, want
+
+
 def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
-                      target_ok=None, anchored=True, valid_cell=None):
+                      target_ok=None, anchored=True, valid_cell=None,
+                      rows=None):
     """Dense twin of :func:`_half_sweep` for small ``nv``: the same
     contract and the same bits, with every decision taken on ``[nv, nv]``
     community matrices (row i: vertex i; column c: community c).
@@ -183,11 +295,12 @@ def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
     The reference fills its matrices with one complex-packed scatter-add,
     which gives the sortscan's run sums only because XLA on the CPU adds
     duplicate indices in edge order.  On the card a scatter-add is atomic
-    and folds in no fixed order, so here each cell's sum is the sortscan's
-    own pass A (stable sort by ``(src, C[dst])``, a 2-channel in-order run
-    sum) written into its cell by a plain index assignment: every element
-    of a run writes the run's one sum, so the order of the writes does not
-    matter.  A cell no edge reaches holds +0.0, as in the reference, and
+    and folds in no fixed order, so here each cell is one segment of a
+    sorted 2-channel segment sum over the ``nv * nv`` cells: the edges
+    stably sorted by cell ``src * nv + C[dst]`` (the order of the
+    sortscan's ``(src, C[dst])`` sort), each cell folding its edges in
+    index order from +0.0, as the sortscan's run sums do.  A cell no edge
+    reaches is an empty segment and holds +0.0, as in the reference, and
     the reference's predicates on the matrices (``W_all > 0`` for
     ``want``, ``W_frz > 0`` for a candidate) are kept as they are: a run
     of zero-weight edges (refine's masked edges) exists but is no
@@ -195,7 +308,29 @@ def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
     any order.  ``valid_cell`` is the loop-invariant ``(i < ghost) &
     (c < ghost)`` mask, hoisted by the caller.  The reference's ``owned``
     and ``axis`` (its sharded harness) have no counterpart here.
+
+    On the card the half-sweep is the kernel ``csrc/dense_sweep.cu``
+    (:func:`repro_torch.kernels.dense_sweep.dense_half_sweep_cuda`), two
+    launches in place of the dozens of :func:`_half_sweep_dense_plain`, its
+    plain version, with the same bits; ``rows`` (``dense_sweep.edge_rows``
+    of ``src``) lets a caller share the edges' row order across sweeps.
     """
+    if not C.is_cuda:
+        return _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m,
+                                       movable, target_ok, anchored,
+                                       valid_cell)
+    if rows is None:
+        rows = edge_rows(src, C.shape[0])
+    C_new, Sigma_new, move, want, best = dense_half_sweep_cuda(
+        rows, dst, w, C, K, Sigma, two_m, movable, target_ok, anchored)
+    return C_new, Sigma_new, move, torch.sum(torch.where(move, best, 0.0)), \
+        want
+
+
+def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
+                            target_ok=None, anchored=True, valid_cell=None):
+    """The plain PyTorch version of :func:`_half_sweep_dense` (on any
+    device; the CPU's route)."""
     nv = C.shape[0]
     ghost = nv - 1
     ids = torch.arange(nv, dtype=torch.int32, device=C.device)
@@ -203,25 +338,18 @@ def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
     if valid_cell is None:
         valid_cell = (ids[:, None] < ghost) & (c_ids < ghost)
 
-    # --- pass A of the sortscan: true and anchored K_{i->c} per run ------
-    cd = C[dst]
-    s_src, s_cd, perm = seg.sort_runs(src, cd)
-    s_dst = dst[perm]
-    s_w = w[perm]
-    not_self = s_src != s_dst  # exclude self-loops from scan (paper Alg. 4)
-    w_all = torch.where(not_self, s_w, 0.0)
-    w_frozen = (torch.where(not_self & ~movable[s_dst], s_w, 0.0)
+    # --- pass A: true and anchored K_{i->c} per (vertex, community) cell --
+    not_self = src != dst  # exclude self-loops from scan (paper Alg. 4)
+    w_all = torch.where(not_self, w, 0.0)
+    w_frozen = (torch.where(not_self & ~movable[dst], w, 0.0)
                 if anchored else w_all)
-    rid = seg.run_ids(seg.run_starts(s_src, s_cd))
-    Wc = seg.runs_reduce(torch.stack([w_all, w_frozen], dim=1), rid,
-                         src.shape[0])[rid]
-    cell = s_src.to(torch.int64) * nv + s_cd
-    W_all = torch.zeros(nv * nv, dtype=torch.float32, device=C.device)
-    W_frz = torch.zeros_like(W_all)
-    W_all[cell] = Wc[:, 0]
-    W_frz[cell] = Wc[:, 1]
-    W_all = W_all.view(nv, nv)    # true K_{i->c} per (vertex, community)
-    W_frz = W_frz.view(nv, nv)    # anchored K_{i->c}
+    cell, perm = torch.sort(src.to(torch.int64) * nv + C[dst], stable=True)
+    if nv * nv <= seg.INT_MAX:     # the card's kernel takes int32 ids
+        cell = cell.to(torch.int32)
+    W = ops.segreduce_sorted(torch.stack([w_all, w_frozen], dim=1)[perm],
+                             cell, nv * nv, op="sum").view(nv, nv, 2)
+    W_all = W[..., 0]    # true K_{i->c} per (vertex, community)
+    W_frz = W[..., 1]    # anchored K_{i->c}
 
     # --- K_{i->d}: true weight to own community (excluding self) ---------
     K_own = W_all[ids, C]
@@ -276,37 +404,75 @@ def wake_neighbours(moved, src, dst, nv: int, adj=None,
     return col.pmax(nbr, group) > 0
 
 
+def _wake_by_dst(moved, src, dst, nv: int, group=None) -> torch.Tensor:
+    """The scatter sweep's wake-up, keyed by the unsorted ``dst`` as in
+    the reference: an integer scatter max, exact in any order."""
+    nbr = torch.zeros(nv, dtype=torch.int32, device=moved.device)
+    nbr.scatter_reduce_(0, dst.long(), moved[src].to(torch.int32), "amax")
+    return col.pmax(nbr, group) > 0
+
+
+SEG_IMPLS = ("auto", "scatter")
+
+
+def _check_seg_impl(seg_impl: str):
+    if seg_impl in ("xla", "pallas"):
+        raise ValueError(
+            f"seg_impl={seg_impl!r} has no counterpart in the port: the "
+            "segment reductions run the kernel of the tensor's device; "
+            "pass 'auto' (the fused sweep) or 'scatter'")
+    if seg_impl not in SEG_IMPLS:
+        raise ValueError(f"seg_impl must be one of {SEG_IMPLS}, got "
+                         f"{seg_impl!r}")
+
+
 def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
                prune, active0, warm, scan, adj, owned=None, group=None,
-               gidx=None, m_total=None):
+               gidx=None, m_total=None, seg_impl="auto"):
     """The sweep loop shared by :func:`local_move` and the warm start of
     ``core/dynamic.py``.  Returns ``(C_best, Sigma_best, l_i, sweeps)``.
 
     ``warm`` keeps a vertex awake only while it is active and wants a
     move (``nbr_moved | (want & active)``), as the reference's warm local
     move does; the cold loop wakes every wanting vertex.  ``owned``,
-    ``group``, ``gidx`` and ``m_total``: see :func:`local_move`."""
+    ``group``, ``gidx``, ``m_total`` and ``seg_impl``: see
+    :func:`local_move`."""
+    _check_seg_impl(seg_impl)
     nv = C0.shape[0]
     ghost = nv - 1
     dev = C0.device
     tau = np.float32(tau)
     ids = torch.arange(nv, dtype=torch.int32, device=dev)
+    scatter = False
+    pbits = None
     if scan == "dense":
         sweep = _half_sweep_dense
         if adj is None:
             adj = dense_adjacency(src, dst, nv)
-        kw = dict(valid_cell=(ids[:, None] < ghost) & (ids[None, :] < ghost))
+        kw = (dict(rows=edge_rows(src, nv)) if dev.type == "cuda" else
+              dict(valid_cell=(ids[:, None] < ghost) & (ids[None, :] < ghost)))
+        pbits = _parity_table(ids, max_iters)
     elif scan == "sort":
-        sweep, adj, kw = _half_sweep, None, dict(owned=owned, group=group)
+        scatter = seg_impl == "scatter"
+        sweep = _half_sweep_scatter if scatter else _half_sweep
+        adj, kw = None, dict(owned=owned, group=group)
     else:
         raise ValueError(f"scan must be 'sort' or 'dense', got {scan!r}")
+
+    if scan == "dense" and dev.type == "cuda":
+        def realized(C, Sigma):   # the same bits, in one launch
+            return dense_modularity_cuda(src, dst, w, C, Sigma, two_m)
+    else:
+        def realized(C, Sigma):
+            return realized_modularity(src, dst, w, C, Sigma, two_m,
+                                       group=group, gidx=gidx,
+                                       m_total=m_total)
 
     C = C0.to(torch.int32).clone()
     C[ghost] = ghost
     Sigma = Sigma0
     active = active0
-    q_kw = dict(group=group, gidx=gidx, m_total=m_total)
-    q_prev = realized_modularity(src, dst, w, C, Sigma, two_m, **q_kw)
+    q_prev = realized(C, Sigma)
     C_best, Sigma_best, q_best = C, Sigma, q_prev
     dQ_iter = dQ_prev = np.float32(np.inf)
     it = n_prod = 0
@@ -314,7 +480,7 @@ def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
     # can stall purely because of an unlucky parity roll
     while (it < 2 or dQ_iter > tau or dQ_prev > tau) and it < max_iters:
         moved_any = torch.zeros(nv, dtype=torch.bool, device=dev)
-        pbit = _hash_parity(ids, it)
+        pbit = _hash_parity(ids, it) if pbits is None else pbits[it]
         for ph, tp in phases:
             movable = active if ph is None else active & (pbit == ph)
             target_ok = None if tp is None else (pbit == tp)
@@ -322,10 +488,12 @@ def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
                 src, dst, w, C, K, Sigma, two_m, movable,
                 target_ok=target_ok, anchored=ph is not None, **kw)
             moved_any = moved_any | moved
-        q_now = realized_modularity(src, dst, w, C, Sigma, two_m, **q_kw)
+        q_now = realized(C, Sigma)
         if prune:
             # neighbours of moved vertices wake up; everyone else sleeps
-            nbr_moved = wake_neighbours(moved_any, src, dst, nv, adj, group)
+            nbr_moved = (_wake_by_dst(moved_any, src, dst, nv, group)
+                         if scatter else
+                         wake_neighbours(moved_any, src, dst, nv, adj, group))
             # schedule-blocked desire stays awake
             active = nbr_moved | ((want & active) if warm else want)
         else:
@@ -354,7 +522,7 @@ SYNC_PHASES = {
 def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
                sync: str = "handshake", prune: bool = True,
                scan: str = "sort", adj=None, owned=None, group=None,
-               gidx=None, m_total=None):
+               gidx=None, m_total=None, seg_impl: str = "auto"):
     """Run the local-moving phase to convergence.
 
     ``tau`` is a float32 threshold (a numpy float32 or Python float holding
@@ -366,6 +534,13 @@ def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
     and wakes neighbours through the bool[nv, nv] adjacency ``adj``, built
     here from the edges when not given (the pass loop shares one with the
     split).
+
+    ``seg_impl`` picks the sortscan's sweep: ``'auto'`` the fused
+    :func:`_half_sweep`, ``'scatter'`` the reference's unfused
+    :func:`_half_sweep_scatter` (the paired baseline; the same bits).
+    The reference's ``'xla'`` and ``'pallas'`` raise ``ValueError``: here
+    every reduction runs the kernel of its tensor's device.  The dense
+    scan ignores it, as in the reference.
 
     On a rank of the process group ``group`` (the sharded driver,
     ``core/distributed.py``): ``src``/``dst``/``w`` are this shard's
@@ -386,5 +561,5 @@ def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
         src, dst, w, C0, K, Sigma0, two_m, tau=tau, max_iters=max_iters,
         phases=SYNC_PHASES[sync], prune=prune, active0=active0, warm=False,
         scan=scan, adj=adj, owned=owned, group=group, gidx=gidx,
-        m_total=m_total)
+        m_total=m_total, seg_impl=seg_impl)
     return C, Sigma, li

@@ -1,7 +1,8 @@
 """Graph substrate: the padded directed-COO container, its generators and
 the vertex-aligned edge partition of the sharded path."""
 from repro_torch.graph.container import (
-    Graph, from_coo, from_undirected, remap_vertices, repad, unit_graph,
+    Graph, from_coo, from_networkx, from_undirected, remap_vertices, repad,
+    unit_graph,
 )
 from repro_torch.graph.generators import (
     bridge_graph,
@@ -19,6 +20,7 @@ from repro_torch.graph.partition import (
 __all__ = [
     "Graph",
     "from_coo",
+    "from_networkx",
     "from_undirected",
     "graph_from_arrays",
     "partition_edges_by_src",

@@ -70,6 +70,10 @@ class Graph:
     def node_mask(self) -> torch.Tensor:
         return torch.arange(self.nv, device=self.device) < self.n_nodes
 
+    def num_edges(self) -> int:
+        """Number of real directed edges."""
+        return int(torch.count_nonzero(self.edge_mask()))
+
     def vertex_weights(self) -> torch.Tensor:
         """K_i = weighted (out-)degree, float32[nv]; the ghost gets 0.
 
@@ -80,6 +84,19 @@ class Graph:
         """2m = sum of all directed edge weights (padding contributes 0), in
         one fixed order on every device (``ops.sum_inorder``)."""
         return ops.sum_inorder(self.w)
+
+    def to_networkx(self):
+        """The live edges as an undirected ``networkx.Graph`` on vertices
+        ``0..n_nodes-1``, each with its ``weight`` (read on the host)."""
+        import networkx as nx
+
+        g = nx.Graph()
+        g.add_nodes_from(range(int(self.n_nodes)))
+        src, dst, w = (t.cpu().numpy() for t in (self.src, self.dst, self.w))
+        mask = src < self.n_cap
+        for u, v, ww in zip(src[mask], dst[mask], w[mask]):
+            g.add_edge(int(u), int(v), weight=float(ww))
+        return g
 
     def __repr__(self) -> str:
         return f"Graph(n_cap={self.n_cap}, m_cap={self.m_cap})"
@@ -270,3 +287,21 @@ def from_undirected(
     ww = np.concatenate([w, w[~loops]])
     return from_coo(n_nodes, s, d, ww, n_cap=n_cap, m_cap=m_cap,
                     device=device)
+
+
+def from_networkx(g, *, n_cap: int | None = None, m_cap: int | None = None,
+                  device=None) -> Graph:
+    """Import an undirected ``networkx`` graph: vertices numbered in
+    ``g.nodes()`` order, each edge's ``weight`` (default 1.0), laid out by
+    :func:`from_undirected` on ``device`` as in :func:`from_coo`."""
+    if g.is_directed():
+        raise ValueError("from_networkx expects an undirected graph")
+    nodes = {node: i for i, node in enumerate(g.nodes())}
+    u, v, w = [], [], []
+    for a, b, data in g.edges(data=True):
+        u.append(nodes[a])
+        v.append(nodes[b])
+        w.append(float(data.get("weight", 1.0)))
+    return from_undirected(
+        g.number_of_nodes(), np.array(u, np.int64), np.array(v, np.int64),
+        np.array(w, np.float32), n_cap=n_cap, m_cap=m_cap, device=device)

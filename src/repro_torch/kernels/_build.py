@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("segreduce", "cumsum", "onehot_segsum", "spmm", "flash_attn")
+SOURCES = ("segreduce", "cumsum", "onehot_segsum", "spmm", "flash_attn",
+           "dense_sweep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1058,3 +1058,237 @@ def test_detect_with_card_mesh_equals_detect(card_mesh, algorithm):
     assert torch.equal(got.labels, want.labels)
     assert got.modularity == want.modularity
     assert got.n_disconnected == want.n_disconnected == 0
+
+
+# --- the scatter sweep and the approximate harness on the card -------------
+
+def _sweep_state(g, seed=5):
+    """A seeded random sweep state on ``g``'s device (labels, K, Sigma,
+    movable and target masks), with K and Sigma by the in-order folds."""
+    nv = g.nv
+    rng = np.random.default_rng(seed)
+    C = rng.integers(0, nv - 1, nv).astype(np.int32)
+    C[nv - 1] = nv - 1
+    C = torch.from_numpy(C).to(g.device)
+    K = ops.segreduce_sorted(g.w, g.src, nv, op="sum")
+    Sigma = ops.segment_sum_inorder(K, C, nv)
+    movable = torch.from_numpy(rng.random(nv) < 0.5).to(g.device)
+    target = torch.from_numpy(rng.random(nv) < 0.5).to(g.device)
+    return C, K, Sigma, movable, target
+
+
+@pytest.mark.parametrize("target", [True, False])
+def test_scatter_sweep_card_equals_cpu_and_fused(cuda, target):
+    from repro_torch.core.local_move import _half_sweep, _half_sweep_scatter
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = rmat_graph(scale=12, edge_factor=8, seed=4, device=dev)
+        C, K, Sigma, movable, target_ok = _sweep_state(g)
+        args = (g.src, g.dst, g.w, C, K, Sigma, g.total_weight_2m(),
+                movable)
+        kw = dict(target_ok=target_ok if target else None)
+        before = segreduce_sorted_cuda.launches
+        out[dev] = [t.cpu() for t in _half_sweep_scatter(*args, **kw)]
+        if dev == "cuda":
+            assert segreduce_sorted_cuda.launches > before
+            fused = [t.cpu() for t in _half_sweep(*args, **kw)]
+    for name, a, b, f in zip(("C", "Sigma", "moved", "gain", "want"),
+                             out["cuda"], out["cpu"], fused):
+        if name == "gain":   # torch.sum: decides nothing, folds by device
+            assert torch.equal(a, f), name
+            continue
+        if a.dtype == torch.float32:
+            a, b, f = (x.view(torch.int32) for x in (a, b, f))
+        assert torch.equal(a, b), f"{name}: card != CPU"
+        assert torch.equal(a, f), f"{name}: scatter != fused"
+
+
+def test_local_move_scatter_card_equals_fused(cuda):
+    from repro_torch.core import local_move
+
+    g = rmat_graph(scale=12, edge_factor=8, seed=1, device="cuda")
+    K = g.vertex_weights()
+    ids = torch.arange(g.nv, dtype=torch.int32, device=cuda)
+    res = {impl: local_move(g.src, g.dst, g.w, ids, K, K,
+                            g.total_weight_2m(), tau=np.float32(1e-2),
+                            seg_impl=impl)
+           for impl in ("auto", "scatter")}
+    (Ca, Sa, la), (Cs, Ss, ls) = res["auto"], res["scatter"]
+    assert torch.equal(Ca, Cs) and la == ls
+    assert torch.equal(Sa.view(torch.int32), Ss.view(torch.int32))
+
+
+def test_community_step_card_equals_cpu_ranks(card_mesh):
+    from repro_torch.core.distributed import (build_community_step,
+                                              run_louvain_multidevice)
+    from repro_torch.graph.partition import partition_edges_by_src
+    from repro_torch.launch import make_host_mesh
+
+    cpu_mesh = make_host_mesh(2, device="cpu")
+    try:
+        out = {}
+        for dev, mesh in (("cuda", card_mesh), ("cpu", cpu_mesh)):
+            g = rmat_graph(scale=12, edge_factor=8, seed=1, device=dev)
+            parts = partition_edges_by_src(g, 2)
+            plan = build_community_step(mesh, n_cap=g.n_cap,
+                                        m_shard=parts["src"].shape[1],
+                                        move_iters=20, split_iters=0)
+            mesh.reports.clear()
+            step = plan["fn"](*(torch.from_numpy(parts[k]).to(dev) for k in
+                                ("src", "dst", "w", "v_lo", "v_hi")),
+                              g.total_weight_2m(), int(g.n_nodes))
+            if dev == "cuda":
+                assert all(n > 0 for n in _rank_launches(mesh))
+            C, stats = run_louvain_multidevice(g, mesh)
+            out[dev] = ([t.cpu() if isinstance(t, torch.Tensor) else t
+                         for t in step], C.cpu(), stats)
+    finally:
+        cpu_mesh.close()
+    (sc, Cc, stc), (sp, Cp, stp) = out["cuda"], out["cpu"]
+    for a, b in zip(sc, sp):
+        if isinstance(a, torch.Tensor):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b)
+        else:
+            assert a == b
+    assert torch.equal(Cc, Cp) and stc == stp
+
+
+# --- the dense half-sweep kernel (csrc/dense_sweep.cu) against its plain
+# version on the card and on the CPU -------------------------------------
+
+DENSE_SWEEP_GRAPHS = {
+    "rmat8": lambda dev: rmat_graph(scale=8, edge_factor=6, seed=4,
+                                    device=dev),
+    "sbm1025": lambda dev: sbm_graph(1024, 16, 0.2, 0.003, seed=3,
+                                     n_cap=1024, m_cap=16384, device=dev)[0],
+    "padded": lambda dev: sbm_graph(90, 4, 0.3, 0.03, seed=6, n_cap=128,
+                                    m_cap=4096, device=dev)[0],
+}
+
+
+@pytest.mark.parametrize("zero_weights", [False, True])
+@pytest.mark.parametrize("target,anchored", [(True, True), (False, True),
+                                             (False, False)])
+@pytest.mark.parametrize("graph", sorted(DENSE_SWEEP_GRAPHS))
+def test_dense_sweep_kernel_equals_plain(cuda, graph, target, anchored,
+                                         zero_weights):
+    from repro_torch.core.local_move import (_half_sweep_dense,
+                                             _half_sweep_dense_plain)
+    from repro_torch.kernels.dense_sweep import dense_half_sweep_cuda
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = DENSE_SWEEP_GRAPHS[graph](dev)
+        C, K, Sigma, movable, target_ok = _sweep_state(g, seed=7)
+        w = g.w
+        if zero_weights:     # refine's masked graph: zero-weight runs
+            part = torch.from_numpy(np.random.default_rng(3).integers(
+                0, 6, g.nv).astype(np.int32)).to(dev)
+            w = torch.where(part[g.src] == part[g.dst], g.w, 0.0)
+        args = (g.src, g.dst, w, C, K, Sigma, g.total_weight_2m(), movable)
+        kw = dict(target_ok=target_ok if target else None, anchored=anchored)
+        if dev == "cuda":
+            before = dense_half_sweep_cuda.launches
+            got = _half_sweep_dense(*args, **kw)
+            assert dense_half_sweep_cuda.launches == before + 1
+            out["plain_cuda"] = _half_sweep_dense_plain(*args, **kw)
+        out[dev] = got if dev == "cuda" else _half_sweep_dense(*args, **kw)
+    for name, a, b, p in zip(("C", "Sigma", "moved", "gain", "want"),
+                             out["cuda"], out["cpu"], out["plain_cuda"]):
+        a, b, p = a.cpu(), b.cpu(), p.cpu()
+        if name == "gain":   # torch.sum: its tree depends on the device
+            assert torch.equal(a, p), name
+            continue
+        if a.dtype == torch.float32:
+            a, b, p = (x.view(torch.int32) for x in (a, b, p))
+        assert torch.equal(a, p), f"{name}: kernel != plain on the card"
+        assert torch.equal(a, b), f"{name}: card != CPU"
+    assert bool(out["cuda"][2].any())
+
+
+@pytest.mark.parametrize("past", [False, True])
+def test_dense_sweep_kernel_at_the_shared_memory_limit(cuda, past):
+    """At ``MAX_NV`` a row's sums fill shared memory; one vertex more and
+    they lie in the global scratch, a block walking many rows.  Both give
+    the plain version's bits on random edges (self-loops included)."""
+    from repro_torch.core.local_move import (_half_sweep_dense,
+                                             _half_sweep_dense_plain)
+    from repro_torch.kernels.dense_sweep import MAX_NV
+
+    nv = MAX_NV + int(past)
+    m = 8 * nv
+    rng = np.random.default_rng(9)
+    src, dst = (torch.from_numpy(rng.integers(0, nv - 1, m).astype(np.int32))
+                .cuda() for _ in range(2))
+    w = torch.from_numpy(rng.random(m).astype(np.float32)).cuda()
+    C = rng.integers(0, nv // 4, nv).astype(np.int32)
+    C[nv - 1] = nv - 1
+    C = torch.from_numpy(C).cuda()
+    K = torch.from_numpy(4 * rng.random(nv).astype(np.float32)).cuda()
+    Sigma = ops.segment_sum_inorder(K, C, nv)
+    movable = torch.from_numpy(rng.random(nv) < 0.5).cuda()
+    target_ok = torch.from_numpy(rng.random(nv) < 0.5).cuda()
+    args = (src, dst, w, C, K, Sigma, ops.sum_inorder(w), movable)
+    got = _half_sweep_dense(*args, target_ok=target_ok)
+    plain = _half_sweep_dense_plain(*args, target_ok=target_ok)
+    for name, a, p in zip(("C", "Sigma", "moved", "gain", "want"), got,
+                          plain):
+        a, p = a.cpu(), p.cpu()
+        if a.dtype == torch.float32:
+            a, p = a.view(torch.int32), p.view(torch.int32)
+        assert torch.equal(a, p), f"{name}: kernel != plain at nv={nv}"
+    assert bool(got[2].any())
+
+
+def test_dense_detect_runs_the_kernel(cuda):
+    g = sbm_graph(1024, 16, 0.2, 0.003, seed=3, n_cap=1024, m_cap=16384,
+                  device="cuda")[0]
+    from repro_torch.kernels.dense_sweep import dense_half_sweep_cuda
+
+    before = dense_half_sweep_cuda.launches
+    got = detect(g, options=DetectOptions(scan="dense"))
+    assert dense_half_sweep_cuda.launches > before
+    want = detect(g.to("cpu"), options=DetectOptions(scan="dense"),
+                  device="cpu")
+    assert torch.equal(got.labels.cpu(), want.labels)
+    assert got.modularity == want.modularity
+
+
+@pytest.mark.parametrize("case", ["sbm1025", "singletons", "three-levels"])
+def test_dense_modularity_kernel_equals_plain(cuda, case):
+    """``dense_modularity_cuda`` against ``realized_modularity`` (the plain
+    version) on the card and on the CPU, bit for bit; ``three-levels``
+    has 1.1M edges, so ``sum_inorder``'s tree has three levels."""
+    from repro_torch.core.local_move import realized_modularity
+    from repro_torch.kernels.dense_sweep import dense_modularity_cuda
+
+    rng = np.random.default_rng(5)
+    if case == "three-levels":
+        nv, m = 1025, 1_100_000
+        src = np.sort(rng.integers(0, nv - 1, m)).astype(np.int32)
+        dst = rng.integers(0, nv - 1, m).astype(np.int32)
+        w = rng.random(m).astype(np.float32)
+    else:
+        g = DENSE_SWEEP_GRAPHS["sbm1025"]("cpu")
+        nv = g.nv
+        src, dst, w = (t.numpy() for t in (g.src, g.dst, g.w))
+    C = (np.arange(nv) if case == "singletons"
+         else rng.integers(0, 40, nv)).astype(np.int32)
+    out = []
+    for dev in ("cuda", "cpu"):
+        s, d, ww, c = (torch.from_numpy(x).to(dev) for x in (src, dst, w, C))
+        K = ops.segreduce_sorted(ww, s, nv, op="sum")
+        Sigma = ops.segment_sum_inorder(K, c, nv)
+        two_m = ops.sum_inorder(ww)
+        plain = realized_modularity(s, d, ww, c, Sigma, two_m)
+        if dev == "cuda":
+            before = dense_modularity_cuda.launches
+            got = dense_modularity_cuda(s, d, ww, c, Sigma, two_m)
+            assert dense_modularity_cuda.launches == before + 1
+            assert got.view(torch.int32).item() == \
+                plain.view(torch.int32).item(), (float(got), float(plain))
+        out.append(plain.cpu())
+    assert out[0].view(torch.int32).item() == out[1].view(torch.int32).item()

@@ -277,8 +277,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every repro_torch module imports with jax made unimportable, and no
-    module of the JAX package gets loaded."""
+    """Every repro_torch module (the CLI ``launch.serve_communities``
+    among them) and the six ``examples/torch_*.py`` import with jax made
+    unimportable, and no module of the JAX package gets loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
@@ -303,6 +304,17 @@ def test_port_imports_neither_jax_nor_repro():
         "    CommunityService, ServiceConfig, ServiceFrontend)\n"
         "for n in ('histogram', 'spans', 'sinks', 'prometheus'):\n"
         "    assert 'repro_torch.telemetry.' + n in names, names\n"
+        "assert 'repro_torch.launch.serve_communities' in names, names\n"
+        "import importlib.util, pathlib\n"
+        f"ex = pathlib.Path({str(ROOT / 'examples')!r})\n"
+        "paths = sorted(ex.glob('torch_*.py'))\n"
+        "assert len(paths) == 6, paths\n"
+        "for p in paths:\n"
+        "    spec = importlib.util.spec_from_file_location(p.stem, p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+        "       and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
+        "assert not bad, bad\n"
         "assert len(names) >= 30, names\n"
         "print(len(names))\n"
     )

@@ -2,12 +2,14 @@
 
 The generators are numpy and copied verbatim, so the same seed must give
 byte-identical arrays; the container must keep the reference's invariants;
-``graph_from_arrays`` must carry a JAX-package graph across unchanged.
-Everything runs on the CPU (``device="cpu"``).
+``graph_from_arrays`` must carry a JAX-package graph across unchanged;
+``from_networkx`` must give the reference's arrays and ``to_networkx`` the
+reference's graph.  Everything runs on the CPU (``device="cpu"``).
 """
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 import repro.graph as rg
 import repro_torch.graph as tg
@@ -139,3 +141,62 @@ def test_constructors_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tg.graph_from_arrays(np.asarray(gj.src), np.asarray(gj.dst),
                              np.asarray(gj.w), 4, gj.n_cap)
+
+
+# ---------------------------------------------------------------------------
+# networkx interop (from_networkx, Graph.to_networkx)
+# ---------------------------------------------------------------------------
+
+def _nx_graphs():
+    nx = pytest.importorskip("networkx")
+    weighted = nx.Graph()
+    rng = np.random.default_rng(3)
+    for u, v in nx.gnm_random_graph(40, 120, seed=3).edges():
+        weighted.add_edge(f"v{u}", f"v{v}", weight=float(rng.uniform(0.1, 3)))
+    isolated = nx.path_graph(6)
+    isolated.add_nodes_from([10, 11, 12])          # no edges at all
+    isolated.add_edge(4, 4, weight=2.5)            # a self-loop
+    return {
+        "karate": (nx.karate_club_graph(), {}),
+        "weighted": (weighted, {}),
+        "isolated": (isolated, {}),
+        "karate-caps": (nx.karate_club_graph(), dict(n_cap=50, m_cap=200)),
+        "empty": (nx.empty_graph(3), {}),
+    }
+
+
+@pytest.mark.parametrize("name", ["karate", "weighted", "isolated",
+                                  "karate-caps", "empty"])
+def test_from_networkx_equals_reference(name):
+    g, caps = _nx_graphs()[name]
+    gj = rg.container.from_networkx(g, **caps)
+    gt = tg.from_networkx(g, device="cpu", **caps)
+    _assert_same_graph(gt, gj)
+    assert gt.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["karate", "weighted", "isolated",
+                                  "karate-caps"])
+def test_to_networkx_round_trips(name):
+    nx = pytest.importorskip("networkx")
+    g, caps = _nx_graphs()[name]
+    gt = tg.from_networkx(g, device="cpu", **caps)
+    h = gt.to_networkx()
+    hj = rg.container.from_networkx(g, **caps).to_networkx()
+    assert sorted(h.nodes()) == sorted(hj.nodes())
+    assert sorted(h.edges(data="weight")) == sorted(hj.edges(data="weight"))
+    relabel = {node: i for i, node in enumerate(g.nodes())}
+    want = nx.relabel_nodes(g, relabel)
+    assert h.number_of_nodes() == want.number_of_nodes()
+    assert set(map(frozenset, h.edges())) == set(map(frozenset, want.edges()))
+    _assert_same_graph(tg.from_networkx(h, device="cpu", **caps), gt)
+
+
+def test_from_networkx_rejects_directed_graphs():
+    nx = pytest.importorskip("networkx")
+    d = nx.DiGraph([(0, 1), (1, 2)])
+    with pytest.raises(ValueError, match="expects an undirected graph") as e:
+        tg.from_networkx(d, device="cpu")
+    with pytest.raises(ValueError) as ej:
+        rg.container.from_networkx(d)
+    assert str(e.value) == str(ej.value)

@@ -224,3 +224,56 @@ def test_build_is_keyed_by_source_hash():
     assert path.parent.parent == _build.BUILD_ROOT
     assert set(_build.SOURCES) == {
         p.stem for p in _build.CSRC.glob("*.cu")}
+
+
+# --- the dense half-sweep kernel's wrapper (csrc/dense_sweep.cu) ----------
+
+def test_dense_sweep_wrapper_refuses_cpu_tensors():
+    """On the CPU the dense scan runs the plain version; the wrapper itself
+    launches only on the card and raises before launching otherwise."""
+    from repro_torch.kernels.dense_sweep import (dense_half_sweep_cuda,
+                                                 edge_rows)
+
+    nv = 5
+    src = torch.tensor([0, 0, 1, 2, 4], dtype=torch.int32)
+    rows = edge_rows(src, nv)
+    args = (rows, src.clone(), torch.ones(5), torch.arange(nv,
+                                                           dtype=torch.int32),
+            torch.ones(nv), torch.ones(nv), torch.tensor(5.0),
+            torch.ones(nv, dtype=torch.bool))
+    before = dense_half_sweep_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        dense_half_sweep_cuda(*args)
+    assert dense_half_sweep_cuda.launches == before
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dense_sweep_edge_rows(seed):
+    """``edge_rows``: each row's edges in index order (a stable sort by
+    src, sorted or not) and int32 row offsets."""
+    from repro_torch.kernels.dense_sweep import edge_rows
+
+    rng = np.random.default_rng(seed)
+    nv = 40
+    src = rng.integers(0, nv, 300).astype(np.int32)
+    if seed == 0:
+        src.sort()
+    order, row_ptr = edge_rows(torch.from_numpy(src), nv)
+    assert order.dtype == row_ptr.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(src, kind="stable"))
+    np.testing.assert_array_equal(
+        row_ptr.numpy(), np.concatenate([[0], np.cumsum(
+            np.bincount(src, minlength=nv))]))
+
+
+@pytest.mark.parametrize("nv", [1, 65, 1025])
+def test_parity_table_equals_hash_parity(nv):
+    """The dense scan's hoisted parity table is ``_hash_parity`` row for
+    row (and so the reference's hash, tested above)."""
+    from repro_torch.core.local_move import _parity_table
+
+    ids = torch.arange(nv, dtype=torch.int32)
+    table = _parity_table(ids, 21)
+    for it in range(21):
+        assert torch.equal(table[it], t_hash_parity(ids, it)), it

@@ -113,3 +113,16 @@ def test_lpa_entry_point_is_the_fast_tier():
     Co, _ = tcore.lpa(_port(gj), options=tcore.DetectOptions(
         algorithm="max-quality"), device="cpu")
     assert torch.equal(Co, Ct)
+
+
+@pytest.mark.parametrize("nv", [1, 65, 1025])
+def test_hash_key_rounds_on_vertex_ids(nv):
+    """What ``lpa_run`` hashes: the vertex ids ``[0, nv)`` of a service
+    bucket's width, every round up to the limit, each the reference's
+    ``h`` minus ``2**31``."""
+    ids = np.arange(nv, dtype=np.int64)
+    for it in range(50):
+        key = hash_key(torch.from_numpy(ids).to(torch.int32), it)
+        np.testing.assert_array_equal(key.numpy().astype(np.int64) + 2**31,
+                                      _reference_h(ids, it),
+                                      err_msg=f"it={it}")
