@@ -196,6 +196,28 @@ result line):
    its wall, communities, Q and disconnected count (not phase 4's
    partition: the harness is approximate, ROADMAP C.4), with the caller's
    and each rank's launches.
+11. The models, the optimiser and the trainers, on the card
+   (``repro_torch.models``, ``optim``, ``launch.train``, ``launch.serve``).
+   (a) TinyLlama-1.1B at its published config (22 layers, d_model 2048,
+   32 heads, GQA kv 4, vocab 32,000) in bf16 with seeded random weights:
+   a flash prefill at 4 x 2048 whose B.5 launches (reset just before)
+   must be above 0 and all on the tensor cores, its last logits within
+   the stated bf16 tolerance of the chunked route's and, against the
+   float32 forward, no further off than the chunked route; decode after
+   a 16-token prompt against the forward at that position (float32 at the
+   reference test's 2e-2, bf16 at the bf16 tolerance); ``generate`` of 32
+   greedy tokens, whose first is the argmax of those logits.  (b)
+   Mixtral-8x7B at full width cut to 2 of its 32 layers (the whole model
+   does not fit one card): a flash prefill of 8,192 tokens over its
+   4,096-token window, ``moe_dropless``, against the chunked route, then 8
+   decode tokens from the prefilled rolling cache.  (c) ``train_lm`` on
+   smollm-360m (5 steps, 4 x 1024, remat), ``train_recsys`` on BST (5
+   steps at 65,536, the 4M-item table) and ``train_gnn`` on the four GNNs
+   at Cora's shape: every loss and gradient norm finite.  (d) Each LM
+   smoke config's float32 forward with flash on the card against the
+   CPU's plain route, within 1e-4.  Each run prints its wall time, tokens
+   a second or seconds a step, peak device memory and B.5 launches,
+   beside the card's name and power limit.
 
 ``--profile`` adds a traced run of phase 4's ``detect()`` of each tier
 (device time by kernel, the device's busy share, and each segment-reduce
@@ -3107,6 +3129,303 @@ def launch_phase(g) -> dict:
     return launches
 
 
+# phase 11: the models on the card
+# bf16 logits after 22 layers: two bf16 routes of one float32 function
+# differ by up to 0.09 at logits of rms 1.0 (chunks of 512 vs 1,024 alone:
+# 0.086), float32 routes by 1e-5; rtol = atol
+FLASH_BF16_TOL = 1e-1
+DECODE_TOL = 2e-2          # the reference's test_decode_matches_forward (f32)
+SMOKE_TOL = 1e-4           # float32 smoke forward, card vs CPU
+LM_SMOKES = ("mixtral-8x7b", "mixtral-8x22b", "command-r-35b",
+             "smollm-360m", "tinyllama-1.1b")
+GNN_ARCHS = ("gcn-cora", "gat-cora", "gatedgcn", "nequip")
+
+
+def err_over_tol(got, want, tol: float) -> float:
+    """The largest ``|got - want| / (tol + tol * |want|)``: at most 1 where
+    every element lies within ``rtol = atol = tol`` (inf on a NaN)."""
+    import torch
+
+    got, want = got.double(), want.double()
+    r = (got - want).abs() / (tol + tol * want.abs())
+    return float(torch.where(torch.isnan(r), float("inf"), r).max())
+
+
+def model_run(fn):
+    """``fn()`` once on the card with B.5's launch counts set to 0 just
+    before: ``(result, wall s, flash launches, tensor-core launches, peak
+    device GiB)``."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.tensor_core_launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, flash_attention_cuda.launches,
+            flash_attention_cuda.tensor_core_launches,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rms(x) -> float:
+    return float(x.double().pow(2).mean().sqrt())
+
+
+def tinyllama_step(card: str) -> dict:
+    """11a: TinyLlama-1.1B at its published config in bf16: a flash
+    prefill at 4 x 2048 (B.5 launched, through the tensor cores), its last
+    logits against the chunked route's within ``FLASH_BF16_TOL`` and, both
+    against the float32 forward, flash no further from it than 1.25x the
+    chunked route; then decode against the forward at the same position
+    (float32 at the reference test's ``DECODE_TOL``, bf16 at
+    ``FLASH_BF16_TOL``) and ``generate`` (16-token prompt, 32 greedy
+    tokens) in bf16, whose first token is the argmax of those logits."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+
+    base = get_spec("tinyllama-1.1b").config
+    flash = dataclasses.replace(base, attn_impl="flash")
+    f32 = dataclasses.replace(base, compute_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = T.init_params(gen, base, device="cuda")
+    toks = torch.randint(0, base.vocab, (4, 2048), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        lf, wall, n, n_tc, peak = model_run(
+            lambda: T.forward(params, toks, flash)[:, -1])
+        lc, wall_c, n_c, _, peak_c = model_run(
+            lambda: T.forward(params, toks, base)[:, -1])
+        lt = T.forward(params, toks, f32)[:, -1]
+    r = err_over_tol(lf, lc, FLASH_BF16_TOL)
+    dev_f, dev_c = rms(lf - lt), rms(lc - lt)
+    log(f"  11a TinyLlama-1.1B ({base.n_layers}L d{base.d_model} "
+        f"{base.n_heads}H kv{base.n_kv_heads} vocab {base.vocab}, bf16) "
+        f"prefill 4 x 2048, flash: wall={wall} s  tokens/s={4 * 2048 / wall}"
+        f"  B.5 launches={n} (tensor cores {n_tc})  peak device memory="
+        f"{peak:.3f} GiB  [{card}]")
+    log(f"    chunked route: wall={wall_c} s  peak={peak_c:.3f} GiB  B.5 "
+        f"launches={n_c}; last-position logits flash vs chunked: max "
+        f"err/tol={r} (rtol = atol = {FLASH_BF16_TOL}), max abs diff="
+        f"{float((lf - lc).abs().max())}; vs the float32 forward (logits "
+        f"rms {rms(lt)}): rms deviation flash={dev_f} chunked={dev_c}, max "
+        f"flash={float((lf - lt).abs().max())} chunked="
+        f"{float((lc - lt).abs().max())}  [{card}]")
+    if n == 0 or n_tc != n or n_c != 0:
+        raise AssertionError(f"11a: flash launches {n} (tensor cores "
+                             f"{n_tc}), chunked {n_c}")
+    if not (torch.isfinite(lf).all() and r <= 1.0 and dev_f <= 1.25 * dev_c):
+        raise AssertionError(f"11a: flash prefill logits off: err/tol {r}, "
+                             f"deviation {dev_f} vs {dev_c}")
+    del lf, lc, lt
+    prompt = toks[:, :16]
+    decoded = {}
+    with torch.no_grad():
+        for cfg, tol in ((f32, DECODE_TOL), (flash, FLASH_BF16_TOL)):
+            want = T.forward(params, prompt, cfg)[:, -1]
+            cache = T.init_cache(cfg, 4, 48, device="cuda")
+            cache["t"].fill_(0)
+            for i in range(16):
+                got, cache = T.decode_step(params, cache, prompt[:, i], cfg)
+            name = str(cfg.compute_dtype).split(".")[-1]
+            decoded[name] = (got, err_over_tol(got, want, tol), tol,
+                             float((got - want).abs().max()))
+    out, wall_g, n_g, _, peak_g = model_run(
+        lambda: generate(flash, params, prompt, 32, device="cuda"))
+    got = decoded["bfloat16"][0]
+    same_first = torch.equal(out[:, 16], got.argmax(-1).to(torch.int32))
+    log(f"  11a generate bf16 4 x (16 prompt + 32 greedy): wall={wall_g} s  "
+        f"tokens/s={4 * 48 / wall_g}  peak device memory={peak_g:.3f} GiB  "
+        f"B.5 launches={n_g}; first token = argmax of the bf16 decode "
+        f"logits: {same_first}  [{card}]")
+    for name, (_, rd, tol, diff) in decoded.items():
+        log(f"    decode after the 16-token prompt vs forward at position "
+            f"15, {name}: max err/tol={rd} (rtol = atol = {tol}), max abs "
+            f"diff={diff}  [{card}]")
+    if not (same_first and out.shape == (4, 48)
+            and all(v[1] <= 1.0 for v in decoded.values())):
+        raise AssertionError(f"11a: decode differs from forward: "
+                             f"{ {k: v[1] for k, v in decoded.items()} }")
+    del params, out, decoded
+    free_card()
+    return {"TinyLlama-1.1B prefill 4x2048 flash (phase 11a)": n,
+            "TinyLlama-1.1B generate (decode path, phase 11a)": n_g}
+
+
+def mixtral_step(card: str) -> dict:
+    """11b: Mixtral-8x7B at full width, 2 of its 32 layers: a flash
+    prefill of 8,192 tokens over its 4,096-token window with
+    ``moe_dropless``, checked against the chunked route, then 8 greedy
+    decode tokens from the prefilled rolling cache."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import transformer as T
+
+    full = get_spec("mixtral-8x7b").config
+    cfg = dataclasses.replace(full, n_layers=2, moe_dropless=True,
+                              attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    params = T.init_params(gen, cfg, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, 8192), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+    def serve():
+        logits, cache = T.prefill(params, toks, cfg, 8192 + 8)
+        tok, out = logits[:, -1].argmax(-1), []
+        with torch.no_grad():
+            for _ in range(8):
+                out.append(tok)
+                lg, cache = T.decode_step(params, cache, tok, cfg)
+                tok = lg.argmax(-1)
+        return logits[:, -1], torch.stack(out, 1), lg
+
+    (last, new, lg), wall, n, n_tc, peak = model_run(serve)
+    with torch.no_grad():
+        lc = T.forward(params, toks, dataclasses.replace(
+            cfg, attn_impl="chunked"))[:, -1]
+    r = err_over_tol(last, lc, FLASH_BF16_TOL)
+    log(f"  11b Mixtral-8x7B at full width, depth cut to {cfg.n_layers} of "
+        f"{full.n_layers} layers (the whole model does not fit one card), "
+        f"bf16, window {cfg.sliding_window}, dropless: prefill 1 x 8192 + 8 "
+        f"decode tokens: wall={wall} s  tokens/s={8200 / wall}  B.5 "
+        f"launches={n} (tensor cores {n_tc})  peak device memory="
+        f"{peak:.3f} GiB; last logits flash vs chunked: max err/tol={r} "
+        f"(rtol = atol = {FLASH_BF16_TOL})  [{card}]")
+    if n == 0 or n_tc != n or r > 1.0 or not torch.isfinite(lg).all() \
+            or new.shape != (1, 8):
+        raise AssertionError(f"11b: launches {n}/{n_tc}, err/tol {r}")
+    del params, last, lc, lg
+    free_card()
+    return {"Mixtral-8x7B 2-layer prefill 8192 flash (phase 11b)": n}
+
+
+def training_step(card: str) -> None:
+    """11c: training at full width: smollm-360m (5 steps, 4 x 1024, remat),
+    BST (5 steps at batch 65,536, 4M items) and the four GNNs at Cora's
+    shape (5 steps each); every loss and gradient norm finite."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.train import train_gnn, train_lm, train_recsys
+
+    runs = [
+        ("smollm-360m train_lm 5 steps, batch 4 x 1024, remat",
+         lambda on: train_lm(get_spec("smollm-360m").config, 5, 4, 1024,
+                             None, False, log_every=1000, device="cuda",
+                             on_step=on)),
+        ("bst train_recsys 5 steps, batch 65536",
+         lambda on: train_recsys(get_spec("bst").config, 5, 65536, None,
+                                 False, log_every=1000, device="cuda",
+                                 on_step=on)),
+    ] + [(f"{a} train_gnn 5 steps, full config on Cora's shape",
+          lambda on, a=a: train_gnn(get_spec(a), 5, None, False,
+                                    log_every=1000, full=True,
+                                    device="cuda", on_step=on))
+         for a in GNN_ARCHS]
+    bad = []
+    for name, run in runs:
+        seen, stamps = [], [time.perf_counter()]
+
+        def on(i, m):       # each step ends in a host read of its loss
+            stamps.append(time.perf_counter())
+            seen.append(m)
+
+        _, wall, _, _, peak = model_run(lambda: run(on))
+        losses = [m["loss"] for m in seen]
+        norms = [m["grad_norm"] for m in seen]
+        ok = len(seen) == 5 and all(
+            torch.isfinite(torch.tensor(losses + norms)))
+        log(f"  11c {name}: wall={wall} s (set-up and step 1: "
+            f"{stamps[1] - stamps[0]} s, steps 2-5: "
+            f"{(stamps[-1] - stamps[1]) / 4} s a step)  peak device memory="
+            f"{peak:.3f} GiB  losses={losses}  grad norms={norms}  "
+            f"finite={ok}  [{card}]")
+        if not ok:
+            bad.append(name)
+        free_card()
+    if bad:
+        raise AssertionError(f"11c: non-finite training: {bad}")
+
+
+def smoke_vs_cpu_step(card: str) -> dict:
+    """11d: each LM smoke config's forward (float32) on the card with
+    flash against the CPU's plain route, within ``SMOKE_TOL``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    for arch in LM_SMOKES:
+        cfg = dataclasses.replace(get_spec(arch).smoke, attn_impl="flash")
+        gen = torch.Generator().manual_seed(13)
+        params = T.init_params(gen, cfg, device="cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                             dtype=torch.int32)
+        card_params = tree_map(lambda x: x.cuda(), params)
+        with torch.no_grad():
+            got, wall, n, _, _ = model_run(
+                lambda: T.forward(card_params, toks.cuda(), cfg))
+            want = T.forward(params, toks, cfg)
+        r = err_over_tol(got.cpu(), want, SMOKE_TOL)
+        log(f"  11d {arch} smoke forward (2 x 64, f32): card flash vs CPU "
+            f"plain: max err/tol={r} (rtol = atol = {SMOKE_TOL})  B.5 "
+            f"launches={n}  wall={wall} s  [{card}]")
+        if n == 0 or r > 1.0:
+            raise AssertionError(f"11d {arch}: launches {n}, err/tol {r}")
+        launches[f"{arch} smoke forward flash (phase 11d)"] = n
+    return launches
+
+
+def models_phase(card: str) -> dict:
+    """Phase 11: the models, the optimiser and the trainers on the card.
+    Every step runs, and the phase fails at its end if any failed.
+    Returns B.5's launches by path."""
+    import traceback
+
+    launches, failures = {}, []
+    for step, fn in (("11a", tinyllama_step), ("11b", mixtral_step),
+                     ("11c", training_step), ("11d", smoke_vs_cpu_step)):
+        t0 = time.perf_counter()
+        try:
+            launches.update(fn(card) or {})
+        except Exception as e:    # noqa: BLE001 (reported, fails phase 11)
+            log(f"  step {step}: FAILED: {e!r}")
+            log(traceback.format_exc())
+            failures.append(f"{step}: {e!r}")
+        free_card()
+        log(f"  step {step}: {time.perf_counter() - t0} s")
+    if failures:
+        raise AssertionError("phase 11: " + "; ".join(failures))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=21,
@@ -3230,8 +3549,21 @@ def main(argv=None) -> int:
     by_path.update(launch_phase(g))
     log(f"  phase 10: {time.perf_counter() - t0} s")
 
+    log("phase 11: the models, the optimiser and the trainers, on the card")
+    del g
+    free_card()
+    t0 = time.perf_counter()
+    flash_paths = models_phase(card)
+    log(f"  phase 11: {time.perf_counter() - t0} s")
+
     entry["launches"] = launches
     entry["launches_by_path"] = by_path
+    for e in api_entries:      # B.5's main path: the TinyLlama prefill
+        if e["name"] == "flash_attention":
+            flash_paths["kernel API, phase 5"] = e["launches"]
+            e["launches"] = flash_paths[
+                "TinyLlama-1.1B prefill 4x2048 flash (phase 11a)"]
+            e["launches_by_path"] = flash_paths
     log(json.dumps({"kernels": [entry] + api_entries + dense_entries}))
     log(f"chip_smoke total: {time.perf_counter() - t_start} s")
     log(card)

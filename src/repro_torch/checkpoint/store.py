@@ -168,16 +168,18 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def _cast(leaf, like, device):
     """A stored leaf in the type of its ``tree_like`` counterpart: a tensor
     of ``like``'s dtype, a numpy array of ``like``'s dtype, or the leaf as
-    read.  With ``device`` every array leaf becomes a tensor there."""
+    read.  With ``device`` every array leaf becomes a tensor there.  A
+    0-dim leaf stays 0-dim (``np.array``, where ``np.ascontiguousarray``
+    would give it one dimension)."""
     if isinstance(like, torch.Tensor):
         t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(leaf))
+            np.array(leaf))
         return t.to(device or "cpu", like.dtype)
     if hasattr(like, "dtype"):
         leaf = np.asarray(leaf).astype(like.dtype)
     if device is not None and isinstance(leaf, (np.ndarray, torch.Tensor)):
         t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(leaf))
+            np.array(leaf))
         return t.to(device)
     return leaf
 

@@ -286,8 +286,7 @@ def _half_sweep_scatter(src, dst, w, C, K, Sigma, two_m, movable,
 
 
 def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
-                      target_ok=None, anchored=True, valid_cell=None,
-                      rows=None):
+                      target_ok=None, anchored=True, rows=None):
     """Dense twin of :func:`_half_sweep` for small ``nv``: the same
     contract and the same bits, with every decision taken on ``[nv, nv]``
     community matrices (row i: vertex i; column c: community c).
@@ -305,9 +304,8 @@ def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
     ``want``, ``W_frz > 0`` for a candidate) are kept as they are: a run
     of zero-weight edges (refine's masked edges) exists but is no
     candidate.  Row max and min, the only other reductions, are exact in
-    any order.  ``valid_cell`` is the loop-invariant ``(i < ghost) &
-    (c < ghost)`` mask, hoisted by the caller.  The reference's ``owned``
-    and ``axis`` (its sharded harness) have no counterpart here.
+    any order.  The reference's ``owned`` and ``axis`` (its sharded
+    harness) have no counterpart here.
 
     On the card the half-sweep is the kernel ``csrc/dense_sweep.cu``
     (:func:`repro_torch.kernels.dense_sweep.dense_half_sweep_cuda`), two
@@ -317,8 +315,7 @@ def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
     """
     if not C.is_cuda:
         return _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m,
-                                       movable, target_ok, anchored,
-                                       valid_cell)
+                                       movable, target_ok, anchored)
     if rows is None:
         rows = edge_rows(src, C.shape[0])
     C_new, Sigma_new, move, want, best = dense_half_sweep_cuda(
@@ -328,51 +325,67 @@ def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
 
 
 def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
-                            target_ok=None, anchored=True, valid_cell=None):
+                            target_ok=None, anchored=True):
     """The plain PyTorch version of :func:`_half_sweep_dense` (on any
-    device; the CPU's route)."""
+    device; the CPU's route), with the ``[nv, nv]`` matrices' bits.
+
+    It takes every decision over the cells that an edge reaches, the
+    sorted runs of ``src * nv + C[dst]``, rather than over all ``nv * nv``
+    cells: only such a cell can pass ``W_all > 0`` (``want``) or ``W_frz
+    > 0`` (a candidate), and a cell no edge reaches holds +0.0.  Each run
+    folds its edges in index order from +0.0, as a matrix cell's segment
+    does.  ``K_own`` adds +0.0 to the one own-community run of a row,
+    which is exact.  The row max and the min-id argmin are exact in any
+    order (the values reduced pass ``W > 0``, so ``2m > 0`` and they are
+    finite), so a scatter takes them.  ``gain`` sums the same ``[nv]``
+    vector."""
     nv = C.shape[0]
     ghost = nv - 1
-    ids = torch.arange(nv, dtype=torch.int32, device=C.device)
-    c_ids = ids[None, :]
-    if valid_cell is None:
-        valid_cell = (ids[:, None] < ghost) & (c_ids < ghost)
 
-    # --- pass A: true and anchored K_{i->c} per (vertex, community) cell --
+    # --- pass A: true and anchored K_{i->c} per cell an edge reaches -----
     not_self = src != dst  # exclude self-loops from scan (paper Alg. 4)
     w_all = torch.where(not_self, w, 0.0)
     w_frozen = (torch.where(not_self & ~movable[dst], w, 0.0)
                 if anchored else w_all)
     cell, perm = torch.sort(src.to(torch.int64) * nv + C[dst], stable=True)
-    if nv * nv <= seg.INT_MAX:     # the card's kernel takes int32 ids
-        cell = cell.to(torch.int32)
+    cell, run = torch.unique_consecutive(cell, return_inverse=True)
     W = ops.segreduce_sorted(torch.stack([w_all, w_frozen], dim=1)[perm],
-                             cell, nv * nv, op="sum").view(nv, nv, 2)
-    W_all = W[..., 0]    # true K_{i->c} per (vertex, community)
-    W_frz = W[..., 1]    # anchored K_{i->c}
+                             run.to(torch.int32), cell.shape[0], op="sum")
+    W_all = W[:, 0]      # true K_{i->c} of each reached cell
+    W_frz = W[:, 1]      # anchored K_{i->c}
+    i = cell // nv
+    c = cell - i * nv
+    Ci = C[i]
 
     # --- K_{i->d}: true weight to own community (excluding self) ---------
-    K_own = W_all[ids, C]
+    own = c == Ci
+    K_own = torch.zeros(nv, dtype=W.dtype, device=W.device).index_add_(
+        0, i, torch.where(own, W_all, 0.0))
 
     # --- delta-modularity per candidate cell (paper Eq. 2) ---------------
-    Ki = K[:, None]
+    Ki = K[i]
     dq = (
-        2.0 * (W_all - K_own[:, None]) / two_m
-        - 2.0 * Ki * (Ki + Sigma[None, :] - Sigma[C][:, None])
-        / (two_m * two_m)
+        2.0 * (W_all - K_own[i]) / two_m
+        - 2.0 * Ki * (Ki + Sigma[c] - Sigma[Ci]) / (two_m * two_m)
     )
-    geom = valid_cell & (c_ids != C[:, None])
-    cand = geom & (W_frz > 0.0) & movable[:, None]
+    geom = (i < ghost) & (c < ghost) & ~own
+    cand = geom & (W_frz > 0.0) & movable[i]
     if target_ok is not None:
-        cand = cand & target_ok[None, :]
-    want = torch.amax(torch.where(geom & (W_all > 0.0), dq, NEG), dim=1) > 0.0
+        cand = cand & target_ok[c]
+
+    def row_max(v):
+        return torch.full((nv,), NEG, dtype=v.dtype, device=v.device
+                          ).scatter_reduce_(0, i, v, "amax")
+
+    want = row_max(torch.where(geom & (W_all > 0.0), dq, NEG)) > 0.0
 
     # --- argmax per source vertex (min community id breaks ties) ---------
     dq_cand = torch.where(cand, dq, NEG)
-    best = torch.amax(dq_cand, dim=1)
-    c_star = torch.amin(
-        torch.where(cand & (dq_cand >= best[:, None]), c_ids, seg.INT_MAX),
-        dim=1)
+    best = row_max(dq_cand)
+    c_star = torch.full((nv,), seg.INT_MAX, dtype=torch.int64,
+                        device=C.device).scatter_reduce_(
+        0, i, torch.where(cand & (dq_cand >= best[i]), c, seg.INT_MAX),
+        "amin").to(C.dtype)
     move = (best > 0.0) & (c_star < ghost)
     C_new = torch.where(move, c_star, C)
     C_new[ghost] = ghost
@@ -449,8 +462,7 @@ def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
         sweep = _half_sweep_dense
         if adj is None:
             adj = dense_adjacency(src, dst, nv)
-        kw = (dict(rows=edge_rows(src, nv)) if dev.type == "cuda" else
-              dict(valid_cell=(ids[:, None] < ghost) & (ids[None, :] < ghost)))
+        kw = dict(rows=edge_rows(src, nv)) if dev.type == "cuda" else {}
         pbits = _parity_table(ids, max_iters)
     elif scan == "sort":
         scatter = seg_impl == "scatter"

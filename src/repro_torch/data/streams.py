@@ -1,5 +1,14 @@
-"""Graph-event streams (port of the graph half of
-``repro/data/streams.py``): numpy and the port's generators only.
+"""Synthetic but *structured* data streams (port of
+``repro/data/streams.py``): numpy, torch and the port's generators only.
+
+The model streams have enough structure for a loss to visibly fall:
+:func:`token_stream` walks an order-1 Markov chain whose successor table
+is the reference's (the same ``np.random.default_rng(seed)`` draws),
+:func:`recsys_stream` labels (user, item) pairs by the reference's hash,
+and :func:`gnn_node_labels` plants labels from the port's Louvain.  Their
+random draws come from a ``torch.Generator`` (seeded with ``seed``), which
+cannot give ``jax.random``'s numbers: the batches are the reference's in
+law, not in value.
 
 Timestamped :class:`GraphEvent` records in **external** vertex-id space —
 edge add/delete/reweight, vertex add/remove — from
@@ -12,9 +21,7 @@ time through the service's ``ingest_window``.  The same seed gives the
 reference's events, field for field.
 
 :func:`graph_dataset` names the generator fixtures.  Graphs are built on
-``device`` (``None`` = CUDA, as every generator of the port).  The
-reference's token, recsys and GNN-label streams serve the LM, recsys and
-GNN scaffold and are not here (ROADMAP A.14).
+``device`` (``None`` = CUDA, as every generator of the port).
 """
 from __future__ import annotations
 
@@ -22,12 +29,70 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.dynamic import _host_array
+from repro_torch.device import resolve_device
 from repro_torch.graph import (
     grid_graph, ring_of_cliques, rmat_graph, sbm_graph,
 )
 from repro_torch.graph.container import Graph, from_undirected
+
+
+_U32 = 0xFFFFFFFF
+
+
+def token_stream(vocab: int, batch: int, seq_len: int, *, seed: int = 0,
+                 device=None):
+    """Infinite iterator of (tokens, targets) int32[batch, seq_len] on
+    ``device`` (``None`` = CUDA).
+
+    Order-1 Markov chain with a sparse random transition table: each token
+    has 8 plausible successors, so a model can reduce loss well below
+    log(vocab).
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    succ = torch.from_numpy(
+        rng.integers(0, vocab, size=(vocab, 8)).astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    while True:
+        x0 = torch.randint(0, vocab, (batch,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        choice = torch.randint(0, 8, (seq_len, batch), generator=gen,
+                               device=dev)
+        toks = [x0]
+        for t in range(seq_len):
+            toks.append(succ[toks[-1].long(), choice[t]])
+        seq = torch.stack(toks, dim=1)          # [B, S+1]
+        yield seq[:, :-1], seq[:, 1:]
+
+
+def recsys_stream(cfg, batch: int, *, seed: int = 0, hot: int = 3,
+                  device=None):
+    """Infinite iterator of BST batches with learnable CTR structure, on
+    ``device`` (``None`` = CUDA)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    while True:
+        user = randint(0, cfg.user_vocab, batch)
+        behavior = randint(0, cfg.item_vocab, batch, cfg.seq_len)
+        target = randint(0, cfg.item_vocab, batch)
+        fields = randint(-1, cfg.user_field_vocab, batch, cfg.n_user_fields,
+                         hot)
+        # structured label: hash-parity of (user, target), the reference's
+        # uint32 arithmetic in int64 under a 32-bit mask (ids < 2**31, so
+        # no product leaves int64)
+        h = ((user.long() * 2654435761 & _U32)
+             + (target.long() * 97 & _U32)) & _U32
+        label = ((h % 7) < 3).to(torch.int32)
+        yield dict(user=user, behavior=behavior, target=target,
+                   fields=fields, label=label)
 
 
 def graph_dataset(name: str, **kw):
@@ -42,6 +107,15 @@ def graph_dataset(name: str, **kw):
     if name == "ring":
         return ring_of_cliques(**kw)
     raise KeyError(name)
+
+
+def gnn_node_labels(g, n_classes: int, *, seed: int = 0):
+    """Planted labels: community-correlated (the port's Louvain on ``g``,
+    on ``g``'s device), so GNN training can learn.  int32 numpy [nv]."""
+    from repro_torch.core import LouvainConfig, louvain
+
+    C, _ = louvain(g, LouvainConfig(max_passes=3), device=g.device)
+    return (C.cpu().numpy() % n_classes).astype(np.int32)
 
 
 # -- graph-event streams (temporal community tracking) ---------------------

@@ -80,6 +80,12 @@ class Graph:
         ``src`` is sorted, so this is one in-order sorted segment sum."""
         return ops.segreduce_sorted(self.w, self.src, self.nv, op="sum")
 
+    def row_offsets(self) -> torch.Tensor:
+        """CSR row offsets int32[nv + 1] (requires the sorted invariant)."""
+        ids = torch.arange(self.nv + 1, dtype=self.src.dtype,
+                           device=self.device)
+        return torch.searchsorted(self.src, ids).to(torch.int32)
+
     def total_weight_2m(self) -> torch.Tensor:
         """2m = sum of all directed edge weights (padding contributes 0), in
         one fixed order on every device (``ops.sum_inorder``)."""

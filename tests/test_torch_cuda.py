@@ -15,7 +15,10 @@ against their plain versions within stated bounds: float32 rounding bounds
 against float64 for the sums, the reference's own tolerances for spmm and
 float32 attention, and the output's bf16 rounding (``chip_smoke.py`` phase
 5) for 16-bit attention, on both routes of
-``kernels/flash_attn.py:tensor_core_route``.
+``kernels/flash_attn.py:tensor_core_route``.  The model scaffold (ROADMAP
+A.14a): each LM smoke config's flash forward on the card against the CPU's
+plain route, flash refusing autograd on the card, decode against forward,
+the trainers' steps, and the sampler's draws across devices.
 """
 import numpy as np
 import pytest
@@ -1292,3 +1295,121 @@ def test_dense_modularity_kernel_equals_plain(cuda, case):
                 plain.view(torch.int32).item(), (float(got), float(plain))
         out.append(plain.cpu())
     assert out[0].view(torch.int32).item() == out[1].view(torch.int32).item()
+
+
+# ---------------------------------------------------------------------------
+# the model scaffold (ROADMAP A.14a)
+# ---------------------------------------------------------------------------
+
+LM_SMOKES = ["mixtral-8x7b", "mixtral-8x22b", "command-r-35b",
+             "smollm-360m", "tinyllama-1.1b"]
+SMOKE_TOL = 1e-4        # float32 logits, card vs CPU (rtol = atol)
+
+
+def _smoke_lm(arch, **replace):
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_spec(arch).smoke, **replace)
+    gen = torch.Generator().manual_seed(13)
+    params = T.init_params(gen, cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                         dtype=torch.int32)
+    return cfg, params, toks
+
+
+@pytest.mark.parametrize("arch", LM_SMOKES)
+def test_lm_smoke_flash_on_card_equals_cpu(cuda, arch):
+    """The float32 smoke forward with ``attn_impl='flash'``: B.5 on the
+    card (one launch a layer) against the plain route on the CPU."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, toks = _smoke_lm(arch, attn_impl="flash")
+    before = flash_attention_cuda.launches
+    with torch.no_grad():
+        got = T.forward(tree_map(lambda x: x.to(cuda), params),
+                        toks.to(cuda), cfg).cpu()
+        want = T.forward(params, toks, cfg)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=SMOKE_TOL, atol=SMOKE_TOL)
+
+
+def test_flash_route_refuses_autograd_on_card(cuda):
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg, params, toks = _smoke_lm("tinyllama-1.1b", attn_impl="flash")
+    p = tree_map(lambda x: x.to(cuda), params)
+    t = toks.to(cuda)
+    with pytest.raises(RuntimeError, match="forward only"):
+        value_and_grad(lambda q: T.loss_fn(q, t, t, cfg), p)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b"])
+def test_decode_on_card_matches_forward(cuda, arch):
+    """48 decode steps (Mixtral-smoke's rolling 32-slot window) against
+    the forward at the last position, the reference test's 2e-2; the
+    prefilled cache gives the same next logits as sequential decode."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg, params, toks = _smoke_lm(arch, moe_dropless=True)
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    p = tree_map(lambda x: x.to(cuda), params)
+    t = toks[:, :48].to(cuda)
+    with torch.no_grad():
+        cache = T.init_cache(cfg, 2, 48, device=cuda)
+        cache["t"].fill_(0)
+        for i in range(48):
+            got, cache = T.decode_step(p, cache, t[:, i], cfg)
+        want = T.forward(p, t, cfg)[:, -1]
+        _, pre = T.prefill(p, t[:, :32], cfg, 48)
+        for i in range(32, 48):
+            nxt, pre = T.decode_step(p, pre, t[:, i], cfg)
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(nxt, got, rtol=SMOKE_TOL, atol=SMOKE_TOL)
+
+
+def test_trainers_run_on_card(cuda):
+    """``train_lm``, ``train_recsys`` and ``train_gnn`` at smoke size on
+    the card: finite losses and gradient norms."""
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.train import train_gnn, train_lm, train_recsys
+
+    seen = []
+
+    def on(i, m):
+        seen.append(m)
+
+    train_lm(get_spec("smollm-360m").smoke, 3, 2, 32, None, False,
+             device=cuda, on_step=on)
+    train_recsys(get_spec("bst").smoke, 3, 16, None, False, device=cuda,
+                 on_step=on)
+    for arch in ("gcn-cora", "gat-cora", "gatedgcn", "nequip"):
+        train_gnn(get_spec(arch), 3, None, False, device=cuda, on_step=on)
+    assert len(seen) == 18
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+               for m in seen)
+
+
+def test_neighbor_sample_card_equals_cpu(cuda):
+    """A CPU generator's draws give the same sample on either device."""
+    from repro_torch.graph.sampler import neighbor_sample
+
+    g = sbm_graph(200, 4, seed=1, device="cpu")[0]
+    seeds = torch.arange(16, dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = neighbor_sample(
+            torch.Generator().manual_seed(3), seeds, g.row_offsets(), g.dst,
+            (5, 3), device=dev)
+    for a, b in zip(out["cpu"]["layers"], out["cuda"]["layers"]):
+        for k in ("src", "dst", "valid"):
+            assert torch.equal(a[k], b[k].cpu())

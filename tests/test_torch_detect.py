@@ -274,12 +274,31 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tcore.louvain_staged(g)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcore.lpa(g)
+    # the model scaffold's entry points (ROADMAP A.14a)
+    from repro_torch.configs import get_spec
+    from repro_torch.graph.sampler import neighbor_sample
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer as T
+
+    cfg = get_spec("tinyllama-1.1b").smoke
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm(cfg, 1, 2, 16, None, False)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(cfg, params, torch.zeros((1, 4), dtype=torch.int32), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        neighbor_sample(torch.Generator(), torch.arange(2), g.row_offsets(),
+                        g.dst, (2,))
 
 
 def test_port_imports_neither_jax_nor_repro():
     """Every repro_torch module (the CLI ``launch.serve_communities``
-    among them) and the six ``examples/torch_*.py`` import with jax made
-    unimportable, and no module of the JAX package gets loaded."""
+    among them, the optimiser, the models, the configs and the LM
+    trainers and server) and the nine ``examples/torch_*.py`` import with
+    jax made unimportable, and no module of the JAX package gets
+    loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
@@ -305,10 +324,20 @@ def test_port_imports_neither_jax_nor_repro():
         "for n in ('histogram', 'spans', 'sinks', 'prometheus'):\n"
         "    assert 'repro_torch.telemetry.' + n in names, names\n"
         "assert 'repro_torch.launch.serve_communities' in names, names\n"
+        "for n in ('optim', 'optim.adamw', 'optim.compress',\n"
+        "          'optim.schedules', 'models', 'models.transformer',\n"
+        "          'models.gnn', 'models.gnn.nequip', 'models.recsys',\n"
+        "          'models.recsys.bst', 'configs', 'configs.base',\n"
+        "          'configs.tinyllama_1_1b', 'configs.louvain',\n"
+        "          'graph.sampler', 'launch.train', 'launch.serve'):\n"
+        "    assert 'repro_torch.' + n in names, names\n"
+        "from repro_torch.configs import ARCH_IDS, get_spec\n"
+        "for a in ARCH_IDS:\n"
+        "    get_spec(a)\n"
         "import importlib.util, pathlib\n"
         f"ex = pathlib.Path({str(ROOT / 'examples')!r})\n"
         "paths = sorted(ex.glob('torch_*.py'))\n"
-        "assert len(paths) == 6, paths\n"
+        "assert len(paths) == 9, paths\n"
         "for p in paths:\n"
         "    spec = importlib.util.spec_from_file_location(p.stem, p)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -1,7 +1,8 @@
-"""The port's six community examples (``examples/torch_*.py``) run on the
+"""The port's examples (``examples/torch_*.py``: the six community
+examples, LM training and serving, and the community pipeline) run on the
 CPU with ``--device cpu`` and pass their own assertions; each is the
 reference example's walk-through (same steps, sizes and asserts) on the
-port."""
+port, LM training cut to 40 steps here (``ARGS``)."""
 import importlib.util
 from pathlib import Path
 
@@ -11,7 +12,9 @@ from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 NAMES = ("torch_quickstart", "torch_community_service",
          "torch_dynamic_updates", "torch_telemetry_sinks",
-         "torch_community_timeline", "torch_chaos_replay")
+         "torch_community_timeline", "torch_chaos_replay",
+         "torch_train_lm", "torch_serve_lm", "torch_community_pipeline")
+ARGS = {"torch_train_lm": ["--steps", "40"]}   # 300 by default
 
 
 def load(name):
@@ -24,12 +27,14 @@ def load(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_example_runs_on_the_cpu(name, capsys):
-    load(name).main(["--device", "cpu"])
+    load(name).main(["--device", "cpu", *ARGS.get(name, [])])
     out = capsys.readouterr().out
     assert out.strip()
     if name == "torch_quickstart":       # the paper's result, in print
         gsp = out.split("GSP-Louvain (split-pass):")[1]
         assert "disconnected            0" in gsp
+    if name == "torch_community_pipeline":
+        assert "(disconnected: 0)" in out
 
 
 def test_examples_default_to_the_card(monkeypatch):
