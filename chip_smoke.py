@@ -218,6 +218,35 @@ result line):
    CPU's plain route, within 1e-4.  Each run prints its wall time, tokens
    a second or seconds a step, peak device memory and B.5 launches,
    beside the card's name and power limit.
+12. The sharding rules, the step builder, the dry run and the roofline
+   (``repro_torch.launch.steps``, ``launch.dryrun``, ``roofline``).  (a)
+   The dry run on the card's host: a ``fake`` process group of 256 and of
+   512 ranks, the production ``(16, 16)`` and ``(2, 16, 16)`` meshes,
+   each cell's step traced once on DTensors of fake tensors (no memory,
+   no launch; ``launch.dryrun.TRACE_DEVICE``) for TinyLlama-1.1B train_4k, prefill_32k and
+   decode_32k, Mixtral-8x7B train_4k, GCN full_graph_sm, GAT minibatch_lg
+   and BST train_batch, at published widths, the LMs' depth cut to
+   ``DRYRUN_LM_LAYERS`` layers (the trace runs every op of every layer in
+   Python; a full-depth LM cell takes minutes); each record's ``[ok]``
+   line and the H100 table beside the card's line.  (b) The roofline
+   against the card: a world-size-1 NCCL group in this process, a ``(1,
+   1)`` ``(data, model)`` ``DeviceMesh`` on ``cuda:0``, and ``build_cell``
+   of TinyLlama-1.1B prefill_32k with ``attn_impl='flash'`` at batch 1,
+   smollm-360m train_4k at batch ``SMOLLM_BATCH``, GCN full_graph_sm and
+   BST serve_p99 (whole); each plan traced on fake tensors, then run on
+   DTensors of seeded inputs: 2 warm-up steps, the median of 5, beside the
+   traced bound and bottleneck (a step slower than 2 s: 1 warm-up, the
+   median of 3), the measured roofline fraction
+   ``(model_flops / peak) / s`` and the traced peak bytes beside
+   ``torch.cuda.max_memory_allocated``.  It fails where the traced
+   argument bytes differ from the real inputs', a step beats its bound by
+   more than 5 %, the prefill's step makes other than one B.5 launch a
+   layer, or the prefill misses its plain routes
+   (:func:`prefill_against_plain`: the same plan's last logits with the
+   chunked route, in bfloat16 and float32, as in 11a, and B.5 at one
+   layer's shape against its plain version, as in phase 5).  The traced
+   peak is read beside the real peak of a step whose predecessor's output
+   is no longer live.
 
 ``--profile`` adds a traced run of phase 4's ``detect()`` of each tier
 (device time by kernel, the device's busy share, and each segment-reduce
@@ -594,17 +623,6 @@ def api_wrappers() -> dict:
             "flash_attention": flash_attention_cuda}
 
 
-def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask lets through, per batch and head."""
-    import numpy as np
-
-    qpos = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window is not None \
-        else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def api_cases(g, labels):
     """The full-width inputs of phase 5, made on the card from seeds:
     ``(kernel, name, op, args, kwargs)``; ``op`` is the ``ops`` function."""
@@ -824,6 +842,8 @@ def case_bound(kernel, name, args, kw, out) -> tuple[float, str]:
     the rows named) and the output written once at the memory rate, or its
     operations at the peak rate, whichever is longer."""
     import torch
+
+    from repro_torch.kernels.flash_attn import attention_pairs
 
     nbytes = sum(a.numel() * a.element_size() for a in args
                  if hasattr(a, "numel")) + out.numel() * out.element_size()
@@ -3425,6 +3445,293 @@ def models_phase(card: str) -> dict:
         raise AssertionError("phase 11: " + "; ".join(failures))
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharding rules, the step builder, the dry run and the
+# roofline
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"),
+                ("tinyllama-1.1b", "prefill_32k"),
+                ("tinyllama-1.1b", "decode_32k"),
+                ("mixtral-8x7b", "train_4k"),
+                ("gcn-cora", "full_graph_sm"),
+                ("gat-cora", "minibatch_lg"),
+                ("bst", "train_batch"))
+DRYRUN_LM_LAYERS = 2
+SMOLLM_BATCH = 2            # train_4k's 256 x 4096 cut to fit one card
+BOUND_SLACK = 1.05          # a step may beat its bound by this much
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+SLOW_STEP_S, SLOW_TIMED_STEPS = 2.0, 3   # a step slower: 1 warm-up, 3 timed
+
+
+def dryrun_step(card: str) -> list:
+    """12a: the dry run's cells on both production meshes over fake ranks
+    (LM depth cut to ``DRYRUN_LM_LAYERS``); records under
+    ``experiments/dryrun_torch``.  Returns the records."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.roofline.hw import HW
+
+    log(f"  12a H100 table (repro_torch.roofline.hw): {HW.name} at "
+        f"{HW.power_limit_w} W: peak bf16 {HW.peak_flops_bf16:.4g} FLOP/s, "
+        f"HBM {HW.hbm_bw:.4g} B/s ({HW.hbm_bytes / 1e9:.0f} GB), collective "
+        f"{HW.coll_bw:.4g} B/s (NDR port; NVLink {HW.nvlink_bw:.4g} B/s in "
+        f"a node)  [measured card: {card}]")
+    recs = []
+    for arch, shape in DRYRUN_CELLS:
+        spec = get_spec(arch)
+        if spec.family == "lm":
+            spec = dataclasses.replace(spec, config=dataclasses.replace(
+                spec.config, n_layers=DRYRUN_LM_LAYERS))
+        for multi_pod in (False, True):
+            t0 = time.perf_counter()
+            rec = run_cell(arch, shape, multi_pod, spec=spec)
+            if rec["status"] != "ok":
+                raise AssertionError(f"12a {arch} x {shape}: {rec}")
+            log(f"    {arch} x {shape} x {rec['mesh']}"
+                f"{' (' + str(DRYRUN_LM_LAYERS) + ' layers)' if spec.family == 'lm' else ''}"
+                f": flops/dev={rec['hlo_flops']:.4g} bytes/dev="
+                f"{rec['hlo_bytes']:.4g} coll/dev={rec['collective_bytes']:.4g}"
+                f" {rec['collective_ops']} peak/dev="
+                f"{rec['bytes_per_device']['peak'] / 1e9:.3f} GB bound="
+                f"{rec['step_time_bound']:.4g} s ({rec['bottleneck']}) "
+                f"gathered ops={sorted(rec.get('gathered_ops', {}))} "
+                f"wall={time.perf_counter() - t0:.2f} s")
+            recs.append(rec)
+    return recs
+
+
+def roofline_cells():
+    """12b's cells: ``(label, spec, shape)`` cut to one card."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+
+    def cut(arch, shape, config=None, **shape_kw):
+        spec = get_spec(arch)
+        shapes = dict(spec.shapes)
+        shapes[shape] = dict(shapes[shape], **shape_kw)
+        return dataclasses.replace(spec, shapes=shapes,
+                                   config=config or spec.config)
+
+    tl = get_spec("tinyllama-1.1b").config
+    return [
+        ("TinyLlama-1.1B prefill_32k flash, batch 1 (of 32)",
+         cut("tinyllama-1.1b", "prefill_32k",
+             dataclasses.replace(tl, attn_impl="flash"), global_batch=1),
+         "prefill_32k"),
+        (f"smollm-360m train_4k, batch {SMOLLM_BATCH} (of 256)",
+         cut("smollm-360m", "train_4k", global_batch=SMOLLM_BATCH),
+         "train_4k"),
+        ("gcn-cora full_graph_sm", cut("gcn-cora", "full_graph_sm"),
+         "full_graph_sm"),
+        ("bst serve_p99 (batch 512)", cut("bst", "serve_p99"), "serve_p99"),
+    ]
+
+
+def prefill_against_plain(spec, shape, mesh, dargs, got, card) -> list:
+    """12b's flash prefill held to its plain routes on the card, phase
+    11a's checks at 1 x 32,768: the same plan with ``attn_impl='chunked'``
+    on the same inputs (the shards of ``dargs`` as plain tensors) gives
+    last logits within ``FLASH_BF16_TOL`` of flash's, and against that plan in float32 flash's rms deviation is at
+    most 1.25x the chunked route's.  Then B.5 alone at one layer's shape
+    (random bfloat16 ``[1, S, Hq, Dh]`` q and ``[1, S, Hkv, Dh]`` k, v)
+    against its plain version at phase 5's tolerance
+    (:func:`check_case`).  Returns the failures."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import tree_map
+
+    # the same tensors as plain ones (a (1, 1) mesh's shards are whole):
+    # the plain routes need no DTensor dispatch, some 10 ops a block
+    local = tree_map(lambda x: x.to_local() if isinstance(x, DTensor)
+                     else x, dargs)
+
+    def last_logits(**cfg_kw):
+        cfg = dataclasses.replace(spec.config, **cfg_kw)
+        plan = build_cell(dataclasses.replace(spec, config=cfg), shape, mesh)
+        return plan.step_fn(*local)
+
+    bad = []
+    lf = got.full_tensor()
+    t0 = time.perf_counter()
+    lc = last_logits(attn_impl="chunked")
+    wall_c = time.perf_counter() - t0
+    lt = last_logits(attn_impl="chunked", compute_dtype=torch.float32)
+    r = err_over_tol(lf, lc, FLASH_BF16_TOL)
+    dev_f, dev_c = rms(lf - lt), rms(lc - lt)
+    log(f"    prefill last logits flash vs chunked (same plan, same inputs; "
+        f"chunked step {wall_c} s): max err/tol={r} (rtol = atol = "
+        f"{FLASH_BF16_TOL}), max abs diff={float((lf - lc).abs().max())}; "
+        f"vs float32 chunked (logits rms {rms(lt)}): rms deviation flash="
+        f"{dev_f} chunked={dev_c}  [{card}]")
+    if not (torch.isfinite(lf).all() and r <= 1.0 and dev_f <= 1.25 * dev_c):
+        bad.append(f"prefill logits off: err/tol {r}, deviation {dev_f} "
+                   f"vs {dev_c}")
+    del lf, lc, lt, local
+    free_card()
+    cfg = spec.config
+    S = spec.shapes[shape]["seq_len"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn((1, S, h, cfg.d_head), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    kw = dict(causal=True, window=cfg.sliding_window)
+    out = flash_attention_cuda(q, k, v, **kw)
+    name = (f"B.5 at one layer's shape q [1, {S}, {cfg.n_heads}, "
+            f"{cfg.d_head}], k, v [1, {S}, {cfg.n_kv_heads}, {cfg.d_head}]")
+    try:
+        err, stated, _ = check_case("flash_attention", name,
+                                    flash_attention_cuda, (q, k, v), kw, out)
+        log(f"    {name}: max_abs_err={err} ({stated})  [{card}]")
+    except AssertionError as e:
+        bad.append(str(e))
+    del q, k, v, out
+    free_card()
+    return bad
+
+
+def roofline_step(card: str) -> dict:
+    """12b: each cell traced on a ``(1, 1)`` mesh on ``cuda:0``, then run
+    on that mesh: measured s a step against the traced bound.  Returns
+    B.5's launches by path."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.launch.dryrun import trace_plan
+    from repro_torch.launch.steps import (
+        build_cell, concrete_args, distribute_args,
+    )
+    from repro_torch.roofline.hw import HW
+    from repro_torch.tree import tree_leaves
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    launches, bad = {}, []
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for label, spec, shape in roofline_cells():
+            plan = build_cell(spec, shape, mesh)
+            t0 = time.perf_counter()
+            rec = trace_plan(plan, mesh, 1)
+            t_trace = time.perf_counter() - t0
+            gen = torch.Generator(device="cuda").manual_seed(12)
+            args = concrete_args(plan, gen, "cuda")
+            real_bytes = sum(x.numel() * x.element_size()
+                             for x in tree_leaves(args))
+            dargs = distribute_args(args, plan.in_shardings, mesh)
+            del args
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+            def step():
+                with implicit_replication():
+                    return plan.step_fn(*dargs)
+
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            slow = time.perf_counter() - t0 > SLOW_STEP_S
+            for _ in range(WARMUP_STEPS - 1 if not slow else 0):
+                step()
+            n_timed = SLOW_TIMED_STEPS if slow else TIMED_STEPS
+            times, n_flash = [], []
+            for _ in range(n_timed):
+                out = None     # the last step's output is not live now
+                flash_attention_cuda.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                n_flash.append(flash_attention_cuda.launches)
+            s = statistics.median(times)
+            peak_real = torch.cuda.max_memory_allocated()
+            finite = all(bool(torch.isfinite(x.full_tensor()
+                                             if hasattr(x, "full_tensor")
+                                             else x).all())
+                         for x in tree_leaves(out)
+                         if x.is_floating_point())
+            frac = (plan.model_flops / HW.peak_flops_bf16) / s
+            bound = rec["step_time_bound"]
+            bpd = rec["bytes_per_device"]
+            log(f"  12b {label}: measured {s} s a step (median of "
+                f"{n_timed}: {times}); traced bound {bound} s "
+                f"({rec['bottleneck']}: compute {rec['t_compute']} s, "
+                f"memory {rec['t_memory']} s, collective "
+                f"{rec['t_collective']} s); bound/measured={bound / s}; "
+                f"roofline fraction (model_flops {plan.model_flops:.6g} / "
+                f"peak) / s = {frac}; traced peak "
+                f"{bpd['peak'] / 2**30:.3f} GiB vs max_memory_allocated "
+                f"{peak_real / 2**30:.3f} GiB; traced argument bytes "
+                f"{bpd['argument']} vs real {real_bytes}; B.5 launches a "
+                f"step {n_flash}; finite outputs {finite}; trace "
+                f"{t_trace:.2f} s  [{card}]")
+            if bpd["argument"] != real_bytes:
+                bad.append(f"{label}: argument bytes {bpd['argument']} != "
+                           f"{real_bytes}")
+            if s * BOUND_SLACK < bound or frac > BOUND_SLACK:
+                bad.append(f"{label}: {s} s beats its bound {bound} s "
+                           f"(fraction {frac})")
+            if not finite:
+                bad.append(f"{label}: non-finite outputs")
+            if "prefill" in shape:
+                n_layers = spec.config.n_layers
+                if any(n != n_layers for n in n_flash):
+                    bad.append(f"{label}: B.5 launches {n_flash}, want "
+                               f"{n_layers} a step")
+                bad.extend(f"{label}: {b}" for b in prefill_against_plain(
+                    spec, shape, mesh, dargs, out, card))
+                launches[f"TinyLlama-1.1B prefill 1x32768 flash, "
+                         f"step builder on a (1, 1) mesh (phase 12b)"] = \
+                    n_flash[0]
+            del dargs, out
+            free_card()
+            if math.isnan(s):
+                bad.append(f"{label}: no time")
+    finally:
+        dist.destroy_process_group()
+    if bad:
+        raise AssertionError("12b: " + "; ".join(bad))
+    return launches
+
+
+def launch_layer_phase(card: str) -> dict:
+    """Phase 12: 12a then 12b; each runs, and the phase fails at its end
+    if either failed.  Returns B.5's launches by path."""
+    import traceback
+
+    launches, failures = {}, []
+    for step, fn in (("12a", dryrun_step), ("12b", roofline_step)):
+        t0 = time.perf_counter()
+        try:
+            got = fn(card)
+            if isinstance(got, dict):
+                launches.update(got)
+        except Exception as e:    # noqa: BLE001 (reported, fails phase 12)
+            log(f"  step {step}: FAILED: {e!r}")
+            log(traceback.format_exc())
+            failures.append(f"{step}: {e!r}")
+        free_card()
+        log(f"  step {step}: {time.perf_counter() - t0} s")
+    if failures:
+        raise AssertionError("phase 12: " + "; ".join(failures))
+    return launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3436,6 +3743,9 @@ def main(argv=None) -> int:
                     "calls of each segsum, cumsum and spmm case of phase 5, "
                     "one engine batch a bucket of phase 6 and phase 8's "
                     "replay at 60/s too")
+    ap.add_argument("--phase12", action="store_true",
+                    help="run phase 1 and phase 12 only, and print no "
+                    "result (a quick check of the launch layer)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3469,6 +3779,15 @@ def main(argv=None) -> int:
         for line in ptxas_lines(reports.get(source, ""), kernel) or [
                 f"{source} cached: no build report in this run"]:
             log(f"  ptxas: {line}")
+
+    if args.phase12:
+        log("phase 12: the step builder, the dry run and the roofline, on "
+            "the card")
+        t0 = time.perf_counter()
+        launch_layer_phase(card)
+        log(f"  phase 12: {time.perf_counter() - t0} s")
+        log(f"chip_smoke --phase12 total: {time.perf_counter() - t_start} s")
+        return 0
 
     t0 = time.perf_counter()
     g = rmat_graph(scale=args.scale, edge_factor=16, seed=1, device="cuda")
@@ -3555,6 +3874,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     flash_paths = models_phase(card)
     log(f"  phase 11: {time.perf_counter() - t0} s")
+
+    log("phase 12: the step builder, the dry run and the roofline, on the "
+        "card")
+    t0 = time.perf_counter()
+    flash_paths.update(launch_layer_phase(card))
+    log(f"  phase 12: {time.perf_counter() - t0} s")
 
     entry["launches"] = launches
     entry["launches_by_path"] = by_path

@@ -20,8 +20,8 @@ where ``ml_dtypes`` is absent, so a bf16 leaf is stored as its 16 bits in
 
 Writes go to ``<dir>/tmp-<step>`` and are renamed into place, so a crash
 mid-write never corrupts the latest checkpoint.  Restore takes ``device=``
-(one device) where the reference takes ``shardings=``: sharding has no
-counterpart until ROADMAP A.12.
+(one device) or the reference's ``shardings=`` (each leaf a DTensor on a
+``DeviceMesh``, :func:`restore_checkpoint`).
 """
 from __future__ import annotations
 
@@ -184,14 +184,51 @@ def _cast(leaf, like, device):
     return leaf
 
 
+def _distribute(leaf, sharding):
+    """A restored leaf as a DTensor of ``sharding``: a
+    :class:`~repro_torch.distributed.sharding.NamedSharding` or a ``(mesh,
+    spec)`` pair, its mesh a ``DeviceMesh`` with axis names."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import NamedSharding
+
+    if not isinstance(sharding, NamedSharding):
+        sharding = NamedSharding(*sharding)
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
+        np.array(leaf))
+    mesh = sharding.mesh
+    return distribute_tensor(t.to(mesh.device_type), mesh,
+                             list(sharding.placements()))
+
+
+class _Leaf:
+    """One sharding, held as a leaf of its tree (a ``(mesh, spec)`` pair
+    is a tuple, which the flattening would walk into)."""
+
+    def __init__(self, sharding):
+        self.sharding = sharding
+
+
+def _pairs_as_leaves(tree_like, shardings):
+    """``shardings`` (a tree like ``tree_like``) with each leaf wrapped,
+    so that it flattens in ``tree_like``'s leaf order."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda _, sh: _Leaf(sh), tree_like, shardings)
+
+
 def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
-                       device=None):
+                       device=None, shardings=None):
     """Restore into the structure of ``tree_like``.
 
     Each leaf takes the dtype of its ``tree_like`` counterpart: a tensor
     counterpart gives a tensor (on the CPU, or on ``device``), a numpy one
-    a numpy array.  ``device`` (one device, where the reference takes
-    target shardings) places every array leaf there as a tensor.
+    a numpy array.  ``device`` (one device) places every array leaf there
+    as a tensor.  ``shardings`` (the reference's target shardings): a tree
+    like ``tree_like`` whose leaves are
+    :class:`~repro_torch.distributed.sharding.NamedSharding` or ``(mesh,
+    spec)`` pairs on a ``DeviceMesh``; each leaf goes through
+    ``distribute_tensor`` onto its mesh's device type, a DTensor.
     Returns (tree, step) or (None, None) when no checkpoint exists.
     """
     step = step if step is not None else latest_step(ckpt_dir)
@@ -206,8 +243,12 @@ def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
             f"  saved:    {manifest['paths'][:5]}...\n  expected: {paths[:5]}..."
         )
     dev = None if device is None else torch.device(device)
-    return rebuild([_cast(leaf, like, dev)
-                    for leaf, like in zip(leaves, like_leaves)]), step
+    out = [_cast(leaf, like, dev) for leaf, like in zip(leaves, like_leaves)]
+    if shardings is not None:
+        targets = _flatten_with_paths(_pairs_as_leaves(tree_like, shardings))[1]
+        out = [_distribute(leaf, sh.sharding)
+               for leaf, sh in zip(out, targets)]
+    return rebuild(out), step
 
 
 def load_checkpoint_arrays(ckpt_dir: str, *, step: Optional[int] = None):

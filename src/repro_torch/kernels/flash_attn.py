@@ -18,6 +18,17 @@ float32 arithmetic) for the rest.
 ``flash_attention_cuda.launches`` counts kernel launches (a plain int): one
 per launch, nowhere else; ``flash_attention_cuda.tensor_core_launches``
 counts those that went to ``flash_fwd_wgmma``.
+
+The card route is also a registered op, ``torch.ops.repro_torch.
+flash_attention`` (:func:`flash_attention_op`), which
+``ops.flash_attention`` calls for CUDA tensors.  Its CUDA kernel is
+:func:`flash_attention_cuda`, so a real CUDA tensor launches exactly as
+before; it has no CPU kernel, so nothing falls back.  As an op it also has
+a fake kernel (shapes and dtypes, for tracing under ``FakeTensorMode``
+with no launch), a flop formula for ``torch.utils.flop_counter`` (``4 * B
+* Hq * Dh`` times :func:`attention_pairs`) and, once
+:func:`repro_torch.distributed.dtensor_rules.register` has run, a DTensor
+sharding rule.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -139,3 +151,37 @@ def launch_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.tensor_core_launches = 0
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through, per batch and head: query
+    ``i`` sees keys ``[max(i - window + 1, 0), min(i, sk - 1)]`` (causal;
+    ``sk - 1`` without), none where that range is empty."""
+    import numpy as np
+
+    qpos = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None \
+        else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_attention", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int? window) "
+           "-> Tensor")
+def flash_attention_op(q, k, v, causal, window):
+    """The card route as a registered op: :func:`flash_attention_cuda`."""
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window, *,
+                           out_shape=None, **kwargs) -> int:
+    b, sq, hq, dh = q_shape
+    return 4 * b * hq * dh * attention_pairs(sq, k_shape[1], causal, window)

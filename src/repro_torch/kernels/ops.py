@@ -3,7 +3,9 @@
 Dispatch is by device, with no knob: a CUDA tensor goes to the hand-written
 kernel (``kernels/segsum.py``, ``spmm.py``, ``onehot_segsum.py``,
 ``flash_attn.py``), a CPU tensor to the plain version (``kernels/ref.py``).
-There is no fallback from one to the other.  The public functions keep the
+There is no fallback from one to the other.  A fake tensor
+(``FakeTensorMode``: a trace, which runs nothing) reaches B.5's registered
+op on any device, so a trace counts the kernel's work.  The public functions keep the
 reference's signatures and layouts, less its ``impl`` and block-size knobs.
 
 The bit-exactness contract of :func:`segreduce_sorted` carries over from
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attn import flash_attention_cuda
+from repro_torch.kernels import flash_attn  # noqa: F401 (registers the op)
 from repro_torch.kernels.onehot_segsum import onehot_segsum_cuda
 from repro_torch.kernels.segsum import cumsum_cuda, segreduce_sorted_cuda
 from repro_torch.kernels.spmm import bucket_spmm_cuda
@@ -158,6 +160,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     attends with kv head ``h // (Hq // Hkv)``.  Keys at or beyond ``Sk``
     do not exist: nothing is padded.
     """
-    if _on(q, "flash_attention"):
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    if _on(q, "flash_attention") or _is_fake(q):
+        # the registered op: flash_attention_cuda on the card; a fake
+        # tensor (a trace, on any device) meets its fake kernel instead
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
     return ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import is_fake
+
+    return is_fake(t)

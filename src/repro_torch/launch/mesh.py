@@ -20,13 +20,18 @@ late rank closes the mesh's workers and raises :class:`MeshError` with
 the rank's traceback.  Nothing falls back: a mesh asked for on CUDA never
 runs a rank on the CPU.
 
-``make_production_mesh`` (a TPU pod's shape) waits for its reader
-(ROADMAP A.14).
+The step builder and the dry run (:mod:`repro_torch.launch.steps`,
+:mod:`repro_torch.launch.dryrun`) take another kind of mesh: a
+``torch.distributed`` ``DeviceMesh`` over the caller's own process group,
+of the reference's production shape (:func:`make_production_mesh`).  The
+dry run opens that group with PyTorch's ``fake`` backend
+(:func:`fake_process_group`), so one process stands for every rank.
 """
 from __future__ import annotations
 
 import atexit
 import collections
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -349,3 +354,63 @@ def resolve_mesh(mesh, device=None):
     if isinstance(mesh, bool) or not isinstance(mesh, int):
         raise TypeError(f"mesh must be None, an int or a Mesh, got {mesh!r}")
     return make_host_mesh(mesh, device=device)
+
+
+# --------------------------------------------------------------------------
+# production meshes for the step builder and the dry run
+# --------------------------------------------------------------------------
+
+POD_SHAPE, POD_AXES = (16, 16), ("data", "model")
+MULTIPOD_SHAPE, MULTIPOD_AXES = (2, 16, 16), ("pod", "data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
+    """The reference's production mesh as a ``DeviceMesh`` over the default
+    process group: ``(16, 16)`` ``(data, model)``, or with ``multi_pod``
+    ``(2, 16, 16)`` ``(pod, data, model)``.  Raises unless the group's
+    world size equals the mesh's size (256 or 512)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = MULTIPOD_SHAPE if multi_pod else POD_SHAPE
+    axes = MULTIPOD_AXES if multi_pod else POD_AXES
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        have = dist.get_world_size() if dist.is_initialized() else None
+        raise ValueError(f"the {'multi-pod' if multi_pod else 'pod'} mesh "
+                         f"{shape} needs a process group of {n} ranks, got "
+                         f"{have}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def flat_axes(mesh) -> tuple:
+    """All axis names of a mesh: the edge-parallel axis set for graph
+    work."""
+    names = getattr(mesh, "axis_names", None) or mesh.mesh_dim_names
+    return tuple(names)
+
+
+@contextlib.contextmanager
+def fake_process_group(n: int):
+    """The default process group as ``n`` ranks of PyTorch's ``fake``
+    backend, this process rank 0, for the body of the ``with``: its
+    collectives return at once and move no data, so one process traces a
+    step of any mesh.  Destroyed on exit.  The one place the port imports
+    ``torch.testing._internal.distributed.fake_pg`` (it registers the
+    backend)."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:          # pragma: no cover - torch builds vary
+        raise RuntimeError(
+            "the dry run needs PyTorch's fake process-group backend "
+            "(torch.testing._internal.distributed.fake_pg), which this "
+            f"torch ({torch.__version__}) does not provide") from e
+    if dist.is_initialized():
+        raise RuntimeError("a default process group is already open")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(n))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()

@@ -43,11 +43,13 @@ def _finite(tree) -> bool:
 def value_and_grad(loss_of, params):
     """``(loss, grads)`` of the scalar ``loss_of(params)``, the gradients
     a tree like ``params`` (the reference's ``jax.value_and_grad``; a
-    leaf the loss does not read gets zeros)."""
+    leaf the loss does not read gets zeros).  Records under
+    ``torch.enable_grad()``, whatever the caller's grad mode."""
     p = tree_map(lambda x: x.detach().requires_grad_(), params)
-    loss = loss_of(p)
-    leaves = tree_leaves(p)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with torch.enable_grad():
+        loss = loss_of(p)
+        leaves = tree_leaves(p)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if gr is None else gr
              for x, gr in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)

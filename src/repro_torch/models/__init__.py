@@ -4,9 +4,10 @@ GNNs, recsys.
 Every family keeps the reference's functional surface: a ``Config``
 dataclass (the published configs live in :mod:`repro_torch.configs`), an
 ``init_*(gen, cfg, device=None)`` drawing the reference's parameter tree
-from a ``torch.Generator``, and pure forward / loss functions on tensors.
-The sharding axes (``param_logical_axes``) belong to the sharding rules
-and are not here.
+from a ``torch.Generator``, pure forward / loss functions on tensors, and
+``param_logical_axes(cfg)``: the reference's logical-axes tree of the
+parameters, which :mod:`repro_torch.distributed.sharding` resolves to
+specs on a mesh (:mod:`repro_torch.launch.steps`).
 
 The reference draws its parameters with ``jax.random``, which torch cannot
 reproduce; :func:`params_from_numpy` carries its arrays across.

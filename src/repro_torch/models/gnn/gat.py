@@ -40,6 +40,13 @@ def init_gat(gen: torch.Generator, cfg: GATConfig, *, device=None):
     return dict(layers=layers)
 
 
+def param_logical_axes(cfg: GATConfig):
+    return dict(layers=[
+        dict(w=("fsdp", "heads"), a_src=("heads", None), a_dst=("heads", None))
+        for _ in range(cfg.n_layers)
+    ])
+
+
 def gat_forward(params, x, src, dst, cfg: GATConfig, edge_mask=None):
     nv = x.shape[0]
     if edge_mask is None:

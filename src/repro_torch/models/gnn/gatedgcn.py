@@ -42,6 +42,16 @@ def init_gatedgcn(gen: torch.Generator, cfg: GatedGCNConfig, *,
                 head=lin(d, cfg.n_classes), layers=layers)
 
 
+def param_logical_axes(cfg: GatedGCNConfig):
+    lx = dict(A=("fsdp", "feat"), B=("fsdp", "feat"), C=("fsdp", "feat"),
+              U=("fsdp", "feat"), V=("fsdp", "feat"),
+              ln_h=(None,), ln_e=(None,))
+    return dict(
+        embed_h=("fsdp", "feat"), embed_e=(None, "feat"),
+        head=("feat", None), layers=[lx] * cfg.n_layers,
+    )
+
+
 def _ln(x, g, eps=1e-5):
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)

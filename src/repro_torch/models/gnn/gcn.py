@@ -36,6 +36,11 @@ def init_gcn(gen: torch.Generator, cfg: GCNConfig, *, device=None):
     )
 
 
+def param_logical_axes(cfg: GCNConfig):
+    n = cfg.n_layers
+    return dict(w=[("fsdp", "feat")] * n, b=[(None,)] * n)
+
+
 def gcn_forward(params, x, src, dst, cfg: GCNConfig, edge_mask=None):
     """x: [nv, d_in] node features (ghost row zero) -> logits [nv, C]."""
     nv = x.shape[0]

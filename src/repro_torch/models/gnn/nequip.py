@@ -58,6 +58,19 @@ def init_nequip(gen: torch.Generator, cfg: NequIPConfig, *, device=None):
     )
 
 
+def param_logical_axes(cfg: NequIPConfig):
+    layer = dict(
+        radial=dict(w1=(None, None), w2=(None, "feat")),
+        self_int={str(l): ("feat", None) for l in range(cfg.l_max + 1)},
+        gates=("feat", None),
+    )
+    return dict(
+        species_embed=(None, "feat"),
+        layers=[layer] * cfg.n_layers,
+        readout=("feat", None),
+    )
+
+
 def bessel_rbf(r, n_rbf, cutoff):
     """Bessel radial basis with smooth polynomial cutoff envelope."""
     r = torch.clamp(r, min=1e-6)

@@ -72,6 +72,20 @@ def init_bst(gen: torch.Generator, cfg: BSTConfig, *, device=None):
     )
 
 
+def param_logical_axes(cfg: BSTConfig):
+    block = dict(wq=(None, "heads"), wk=(None, "heads"), wv=(None, "heads"),
+                 wo=("heads", None), w1=(None, "mlp"), w2=("mlp", None),
+                 ln1=(None,), ln2=(None,))
+    return dict(
+        item_table=("rows", None),
+        user_table=("rows", None),
+        field_table=("rows", None),
+        pos_embed=(None, None),
+        blocks=[block] * cfg.n_blocks,
+        mlp=[dict(w=("fsdp", "mlp"), b=(None,))] * (len(cfg.mlp) + 1),
+    )
+
+
 def embedding_bag(table, indices, offsets=None, mode="sum"):
     """EmbeddingBag: gather + sum over each bag.
 

@@ -159,6 +159,42 @@ def init_params(gen: torch.Generator, cfg: LMConfig, *, device=None):
     return params
 
 
+def param_logical_axes(cfg: LMConfig):
+    """The logical axes of :func:`init_params`' leaves (the reference's
+    tree, for :mod:`repro_torch.distributed.sharding`)."""
+    layers = dict(
+        ln1=("stack", None),
+        ln2=("stack", None),
+        wq=("stack", "fsdp", "heads"),
+        wk=("stack", "fsdp", "heads"),
+        wv=("stack", "fsdp", "heads"),
+        wo=("stack", "heads", "fsdp"),
+    )
+    if cfg.is_moe:
+        # the experts dim stays unsharded where E does not divide 'model';
+        # expert matrices shard 2-D: D over fsdp, F over model
+        layers.update(
+            gate=("stack", "fsdp", None),
+            w1=("stack", "experts", "fsdp", "mlp"),
+            w3=("stack", "experts", "fsdp", "mlp"),
+            w2=("stack", "experts", "mlp", "fsdp"),
+        )
+    else:
+        layers.update(
+            w1=("stack", "fsdp", "mlp"),
+            w3=("stack", "fsdp", "mlp"),
+            w2=("stack", "mlp", "fsdp"),
+        )
+    axes = dict(
+        embed=("vocab", "fsdp"),
+        layers=layers,
+        final_norm=(None,),
+    )
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("fsdp", "vocab")
+    return axes
+
+
 # --------------------------------------------------------------------------
 # building blocks
 # --------------------------------------------------------------------------
@@ -293,14 +329,17 @@ def swiglu(lp, x, dt):
     return h @ lp["w2"].to(dt)
 
 
-def moe_mlp(lp, x, cfg: LMConfig):
+def moe_mlp(lp, x, cfg: LMConfig, constrain=None):
     """Grouped sort-based top-k MoE with per-group capacity.
 
     GShard-style groups: each batch row routes its own tokens with local
     capacity ``ceil(cf * K * S / E)`` (``S`` with ``moe_dropless``).  A
     token's top-k experts are sorted by a stable argsort on the expert id;
     a token past its expert's capacity is dropped (its slot is the dump row
-    ``E * cap``)."""
+    ``E * cap``).  Every dispatch and combine op works along dim 1 of a
+    ``[B, ...]`` tensor, one group a batch row, so a batch-sharded ``x``
+    stays shard-local; ``constrain`` (the step builder's) holds the
+    ``[B, E, cap, *]`` buffers batch-sharded, as the reference's does."""
     b, s, d = x.shape
     dt = cfg.compute_dtype
     E, K = cfg.n_experts, cfg.top_k
@@ -319,22 +358,28 @@ def moe_mlp(lp, x, cfg: LMConfig):
     flat_w = topv.reshape(b, s * K)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     se = torch.gather(flat_e, 1, order)
-    st = flat_t[order]                                        # [B, S*K]
+    st = torch.gather(flat_t.expand(b, -1), 1, order)          # [B, S*K]
     sw = torch.gather(flat_w, 1, order)
     start = torch.searchsorted(
         se, torch.arange(E, device=dev).expand(b, E).contiguous())
     pos = torch.arange(s * K, device=dev) - torch.gather(start, 1, se)
     keep = pos < cap
     slot = torch.where(keep, se * cap + pos, E * cap)         # dropped -> tail
-    rows = torch.arange(b, device=dev)[:, None].expand_as(slot)
     xs = torch.gather(x, 1, st[..., None].expand(-1, -1, d))
-    buf = torch.zeros((b, E * cap + 1, d), dtype=dt, device=dev).index_put(
-        (rows, slot), xs * keep[..., None].to(dt))
+    # kept slots are distinct; every dropped token writes zeros to the dump
+    buf = torch.zeros((b, E * cap + 1, d), dtype=dt, device=dev).scatter(
+        1, slot[..., None].expand(-1, -1, d), xs * keep[..., None].to(dt))
     h = buf[:, : E * cap].reshape(b, E, cap, d)
+    if constrain is not None:
+        h = constrain(h)
 
     up = F.silu(torch.einsum("gecd,edf->gecf", h, lp["w1"].to(dt))) \
         * torch.einsum("gecd,edf->gecf", h, lp["w3"].to(dt))
+    if constrain is not None:
+        up = constrain(up)
     down = torch.einsum("gecf,efd->gecd", up, lp["w2"].to(dt))
+    if constrain is not None:
+        down = constrain(down)
 
     flat = torch.cat([down.reshape(b, E * cap, d),
                       torch.zeros((b, 1, d), dtype=dt, device=dev)], dim=1)
@@ -344,14 +389,16 @@ def moe_mlp(lp, x, cfg: LMConfig):
         1, st[..., None].expand(-1, -1, d), contrib)
 
 
-def _layer(lp, x, cfg: LMConfig, positions, kv=None):
+def _layer(lp, x, cfg: LMConfig, positions, kv=None, constrain=None):
     h, new_kv = attention(lp, rmsnorm(x, lp["ln1"]), cfg, positions, kv)
     x = x + h
     h2 = rmsnorm(x, lp["ln2"])
     if cfg.is_moe:
-        x = x + moe_mlp(lp, h2, cfg)
+        x = x + moe_mlp(lp, h2, cfg, constrain)
     else:
         x = x + swiglu(lp, h2, cfg.compute_dtype)
+    if constrain is not None:
+        x = constrain(x)
     return x, new_kv
 
 
@@ -380,19 +427,26 @@ def _head(params, x, dt):
 # public forward passes
 # --------------------------------------------------------------------------
 
-def forward(params, tokens, cfg: LMConfig, *, return_kv: bool = False):
+def forward(params, tokens, cfg: LMConfig, constrain=None, *,
+            return_kv: bool = False):
     """Train/prefill forward. tokens: int[B, S] -> float32 logits
     [B, S, V].  With ``return_kv`` also each layer's rotated keys and
-    values, ``[(k, v)]`` of ``[B, S, Hkv, Dh]`` (:func:`prefill`)."""
+    values, ``[(k, v)]`` of ``[B, S, Hkv, Dh]`` (:func:`prefill`).
+    ``constrain`` (or ``None``) maps the activations after the embedding
+    and after each layer: the step builder's batch-sharding constraint.
+    The layers run in a Python loop, so a trace sees every layer."""
     b, s = tokens.shape
     dt = cfg.compute_dtype
     x = params["embed"].to(dt)[tokens.long()]
+    if constrain is not None:
+        x = constrain(x)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     names = sorted(params["layers"])
     kvs = []
 
     def body(h, *leaves):
-        return _layer(dict(zip(names, leaves)), h, cfg, positions)[0]
+        return _layer(dict(zip(names, leaves)), h, cfg, positions,
+                      constrain=constrain)[0]
 
     remat = cfg.remat and torch.is_grad_enabled() and not return_kv
     for i in range(cfg.n_layers):
@@ -405,18 +459,24 @@ def forward(params, tokens, cfg: LMConfig, *, return_kv: bool = False):
             x = tckpt.checkpoint(body, x, *(lp[n] for n in names),
                                  use_reentrant=False, **kw)
         else:
-            x, kv = _layer(lp, x, cfg, positions)
+            x, kv = _layer(lp, x, cfg, positions, constrain=constrain)
             if return_kv:
                 kvs.append(kv)
     logits = _head(params, x, dt)
     return (logits, kvs) if return_kv else logits
 
 
-def loss_fn(params, tokens, targets, cfg: LMConfig):
-    """Next-token cross-entropy (mean over tokens)."""
-    logits = forward(params, tokens, cfg)
+def loss_fn(params, tokens, targets, cfg: LMConfig, constrain=None):
+    """Next-token cross-entropy (mean over tokens).  The gold logit is
+    picked by a mask over the vocabulary, not a gather: the same value and
+    gradient, and on a DTensor its backward keeps the logits' sharding
+    (a gather's backward scatters into zeros of the logits' global shape,
+    which DTensor replicates on every device)."""
+    logits = forward(params, tokens, cfg, constrain)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(vocab == targets.long()[..., None], logits,
+                       0.0).sum(dim=-1)
     return torch.mean(logz - gold)
 
 
@@ -462,14 +522,31 @@ def prefill(params, tokens, cfg: LMConfig, seq_len: int):
     return logits, cache
 
 
-def decode_step(params, cache, tokens, cfg: LMConfig):
+def _write_slot(buf, slot: int, val):
+    """``buf[:, slot] = val`` in place.  A DTensor ``buf`` (the step
+    builder's cache, sharded along its length) is written in the one local
+    shard that holds the slot
+    (:func:`repro_torch.distributed.dtensor_rules.write_slot`)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(buf, DTensor):
+        from repro_torch.distributed.dtensor_rules import write_slot
+
+        write_slot(buf, 1, slot, val)
+    else:
+        buf[:, slot] = val
+
+
+def decode_step(params, cache, tokens, cfg: LMConfig, *, t=None):
     """One decode step. tokens: int[B] -> (logits [B, V], cache).
 
     Writes the step's key, value and position into ``cache`` in place and
-    advances its ``t``; returns the same cache."""
+    advances its ``t``; returns the same cache.  ``t``: the step's
+    position where the caller knows it without reading ``cache['t']``
+    (a trace over fake tensors, whose values cannot be read)."""
     b = tokens.shape[0]
     dt = cfg.compute_dtype
-    t = int(cache["t"])
+    t = int(cache["t"]) if t is None else int(t)
     x = params["embed"].to(dt)[tokens.long()][:, None, :]     # [B, 1, D]
     positions = torch.full((b, 1), t, dtype=torch.int32, device=x.device)
     cl = cache["k"].shape[2]
@@ -486,9 +563,9 @@ def decode_step(params, cache, tokens, cfg: LMConfig):
         q = rope(q.reshape(b, 1, hkv * g, dh), positions, cfg.rope_theta)
         q = q.reshape(b, 1, hkv, g, dh)
         k = rope(k, positions, cfg.rope_theta)
-        kc[:, slot] = k[:, 0]
-        vc[:, slot] = v[:, 0]
-        pc[:, slot] = t
+        _write_slot(kc, slot, k[:, 0])
+        _write_slot(vc, slot, v[:, 0])
+        _write_slot(pc, slot, t)
         # score against the whole cache; stale slots masked via positions
         s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), kc.float())
         s = s / math.sqrt(dh)

@@ -227,3 +227,36 @@ def test_restore_onto_a_device(tmp_path):
     assert isinstance(got["a"], torch.Tensor) and got["a"].dtype == torch.int32
     assert got["b"].device.type == "cpu"
     assert got["a"].tolist() == [0, 1, 2, 3]
+
+
+def test_elastic_restore_with_shardings(tmp_path):
+    """Restore with explicit target shardings (the reference's case): a
+    one-rank gloo group on the CPU, every leaf on a ``(data,)`` mesh, as a
+    NamedSharding or as a (mesh, spec) pair (a spec over the mesh's one
+    rank replicates: ``NamedSharding.placements``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.distributed.sharding import NamedSharding, P
+    from repro_torch.tree import tree_map
+
+    d = str(tmp_path / "ck")
+    save_checkpoint(d, 2, _tree(3.0))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        sh = tree_map(lambda _: NamedSharding(mesh, P()), _tree())
+        sh["opt"]["m"] = (mesh, P("data", None))
+        restored, step = restore_checkpoint(d, _tree(), shardings=sh)
+        assert step == 2
+        w = restored["params"]["w"]
+        assert isinstance(w, DTensor) and w.placements == (Replicate(),)
+        assert torch.equal(w.full_tensor(), _tree(3.0)["params"]["w"])
+        m = restored["opt"]["m"]
+        assert isinstance(m, DTensor) and m.placements == (Replicate(),)
+        assert torch.equal(m.full_tensor(), _tree(3.0)["opt"]["m"])
+        assert int(restored["opt"]["step"].full_tensor()) == 7
+    finally:
+        dist.destroy_process_group()

@@ -295,8 +295,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_port_imports_neither_jax_nor_repro():
     """Every repro_torch module (the CLI ``launch.serve_communities``
-    among them, the optimiser, the models, the configs and the LM
-    trainers and server) and the nine ``examples/torch_*.py`` import with
+    among them, the optimiser, the models, the configs, the LM
+    trainers and server, the sharding rules, the step builder, the dry
+    run and the roofline) and the nine ``examples/torch_*.py`` import with
     jax made unimportable, and no module of the JAX package gets
     loaded."""
     code = (
@@ -330,6 +331,10 @@ def test_port_imports_neither_jax_nor_repro():
         "          'models.recsys.bst', 'configs', 'configs.base',\n"
         "          'configs.tinyllama_1_1b', 'configs.louvain',\n"
         "          'graph.sampler', 'launch.train', 'launch.serve'):\n"
+        "    assert 'repro_torch.' + n in names, names\n"
+        "for n in ('distributed.sharding', 'distributed.dtensor_rules',\n"
+        "          'launch.steps', 'launch.dryrun', 'roofline',\n"
+        "          'roofline.hw', 'roofline.analyze'):\n"
         "    assert 'repro_torch.' + n in names, names\n"
         "from repro_torch.configs import ARCH_IDS, get_spec\n"
         "for a in ARCH_IDS:\n"
