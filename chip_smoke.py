@@ -9,7 +9,7 @@ result line):
 1. Environment: the card's name and power limit, torch and CUDA versions,
    and the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (ptxas registers, shared memory and spills of the tensor-core flash,
-   cumsum and spmm kernels).
+   cumsum, spmm and dense-scan kernels).
 2. Kernel vs plain, on the card, at the main path's sizes (the edge arrays
    of the full-size graph of phase 4): every (op, dtype, D) the main path
    uses, with empty segments, the graph's hub segments and a 96-row
@@ -43,7 +43,11 @@ result line):
    card run with its wall time and segment-reduce launches (and the dense
    half-sweep kernel's, ``csrc/dense_sweep.cu``, which the dense scan runs
    on the card: held bit for bit to its plain version on the card and the
-   CPU at ``nv = 1025`` on six sweep states, with its time and bound);
+   CPU at ``nv = 1025`` on six sweep states, then with the modularity
+   kernel on the stress cases of ``tests/_torch_dense_cases.py`` and one
+   vertex past ``MAX_NV``; each with its wrapper time, device time, the
+   empty launch's as the floor, and its bound with the chain of its
+   longest in-order fold);
    ``DetectOptions.resolved_scan`` against the reference's answers; and
    ``update_communities`` with a seeded churn batch (removals, wired
    additions, deletions, insertions) on that graph with each scan and on
@@ -569,7 +573,9 @@ SIGMA_CASE = "segsum K by labels (Sigma recompute)"
 
 # (source, kernel) whose ptxas report phase 1 prints, one line an instance
 PTXAS_KERNELS = (("flash_attn", TENSOR_CORE_KERNEL), ("cumsum", "cumsum_rows"),
-                 ("cumsum", "cumsum_cols"), ("spmm", "bucket_spmm_kernel"))
+                 ("cumsum", "cumsum_cols"), ("spmm", "bucket_spmm_kernel"),
+                 ("dense_sweep", "dense_rows"), ("dense_sweep", "dense_sigma"),
+                 ("dense_sweep", "dense_modularity_kernel"))
 
 
 def demangle(names: list[str]) -> list[str]:
@@ -1084,12 +1090,11 @@ def dense_phase() -> int:
             return DetectOptions(algorithm=algorithm, scan=scan,
                                  louvain=LouvainConfig(split=split))
 
-        n_dense = (dense_half_sweep_cuda.launches,
-                   dense_modularity_cuda.launches)
+        dense_half_sweep_cuda.launches = dense_modularity_cuda.launches = 0
         dense, wall, n, _ = timed_path(
             lambda: detect(g_card, options=opts("dense")))
-        n_dense = (dense_half_sweep_cuda.launches - n_dense[0],
-                   dense_modularity_cuda.launches - n_dense[1])
+        n_dense = (dense_half_sweep_cuda.launches,
+                   dense_modularity_cuda.launches)
         sort, wall_sort, n_sort, _ = timed_path(
             lambda: detect(g_card, options=opts("sort")))
         on_cpu = detect(g_cpu, options=opts("dense"), device="cpu")
@@ -1118,24 +1123,160 @@ DENSE_Q_REPLACES = "src/repro/core/local_move.py:124"
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 rate off the tensor cores
 
 
+def dense_device_us(fn, kernels, calls: int = 20):
+    """Device microseconds a call of ``fn()`` spends in the named kernels,
+    from ``torch.profiler`` over ``calls`` calls (None if the trace holds
+    no device time for them); each kernel's is logged."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {k: sum(e.self_device_time_total for e in prof.key_averages()
+                 if k in e.key) / calls for k in kernels}
+    log(f"    device us a call by kernel: {by}")
+    us = sum(by.values())
+    return us if us > 0 else None
+
+
+def events_ms(fn, calls: int = 100) -> float:
+    """CUDA-event milliseconds a call over ``calls`` back-to-back calls of
+    ``fn()`` (after one warm call): a launch's device time where the host
+    enqueues faster than the card runs, else the host's time a launch."""
+    import torch
+
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def host_call_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call of ``fn()`` over ``calls`` calls, the card
+    left to run behind them (synchronized before and after)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def fold_chain(n: int) -> int:
+    """The dependent adds of ``ops.sum_inorder`` over ``n`` values: a leaf
+    chunk's, then one chunk's at each level above."""
+    chain, level = min(max(n, 1), DENSE_CHUNK), -(-max(n, 1) // DENSE_CHUNK)
+    while level > 1:
+        chain += min(level, DENSE_CHUNK)
+        level = -(-level // DENSE_CHUNK)
+    return chain
+
+
+DENSE_CHUNK = 1024                # ops.FLAT_CHUNK
+
+
+def dense_stress_checks() -> int:
+    """Phase 3, the dense kernels on the stress cases of
+    ``tests/_torch_dense_cases.py`` (a hub row of degree ``nv - 1``, one
+    community, all singletons, ``m`` ragged and past 65,536, ``nv = 2``,
+    refine's masked weights) and one vertex past ``MAX_NV``: each
+    half-sweep variant and the modularity of its result bit for bit equal
+    to the plain versions on the card, and to a second launch.  Returns the
+    number of checks; raises on a miss."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_dense_cases import dense_cases, past_max_nv_case
+
+    from repro_torch.core.local_move import (_half_sweep_dense,
+                                             _half_sweep_dense_plain,
+                                             realized_modularity)
+    from repro_torch.kernels.dense_sweep import MAX_NV, dense_modularity_cuda
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x).copy()).cuda()
+
+    checks, misses = 0, []
+    for c in dense_cases() + [past_max_nv_case(MAX_NV)]:
+        two_m = torch.tensor(np.float32(c["two_m"]), device="cuda")
+        args = (t(c["src"]), t(c["dst"]), t(c["w"]), t(c["C"]), t(c["K"]),
+                t(c["Sigma"]), two_m, t(c["movable"]))
+        for target, anchored in ((True, True), (False, True),
+                                 (False, False)):
+            kw = dict(target_ok=t(c["target_ok"]) if target else None,
+                      anchored=anchored)
+            got = _half_sweep_dense(*args, **kw)
+            again = _half_sweep_dense(*args, **kw)
+            plain = _half_sweep_dense_plain(*args, **kw)
+            ok = all(bits_equal(a, p) and bits_equal(a, b)
+                     for a, b, p in zip(got, again, plain))
+            q_args = args[:3] + (got[0], got[1], two_m)
+            q = dense_modularity_cuda(*q_args)
+            ok_q = bits_equal(q, realized_modularity(*q_args)) and \
+                bits_equal(q, dense_modularity_cuda(*q_args))
+            checks += 1
+            if not (ok and ok_q):
+                misses.append(f"{c['name']} target={target} "
+                              f"anchored={anchored} (sweep {ok}, Q {ok_q})")
+        log(f"  dense stress {c['name']}: nv={c['nv']} m={len(c['src'])}: "
+            f"kernel == plain == a second launch (every output, Q)="
+            f"{not any(x.startswith(c['name'] + ' ') for x in misses)}")
+    if misses:
+        raise AssertionError("dense kernels differ from their plain "
+                             "versions: " + "; ".join(misses))
+    return checks
+
+
+def bits_equal(a, b) -> bool:
+    """Tensors equal in shape and bits (float32 as int32)."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
 def dense_sweep_phase(launches) -> list:
     """Phase 3, the dense scan's kernels (``csrc/dense_sweep.cu``) at their
     full width, ``nv = 1025``, on a seeded sweep state: the half-sweep's
     every output bit for bit against its plain version on the card and on
     a CPU copy, with and without targets and anchoring and on refine's
-    masked weights, and the loop's realized modularity the same way; each
-    one's time, its plain version's and its bound.  ``launches`` is their
-    counts in the dense standard ``detect()`` of :func:`dense_phase`.
-    Returns their JSON entries."""
+    masked weights, and the loop's realized modularity the same way; then
+    the stress cases (:func:`dense_stress_checks`).  Each kernel's time:
+    the wrapper's (CUDA events around the call, host time included, as
+    the main path pays it), its device time (``torch.profiler``; else
+    events around 100 back-to-back bare launches), the empty launch's
+    beside them as the floor, its plain version's, and its bound: bytes,
+    operations, and the chain of its longest in-order fold (4 cycles an
+    add at the card's top clock).  ``launches`` is their counts in the
+    dense standard ``detect()`` of :func:`dense_phase`.  Returns their
+    JSON entries."""
+    import ctypes
+
     import numpy as np
     import torch
 
     from repro_torch.core.local_move import (_half_sweep_dense,
                                              _half_sweep_dense_plain,
                                              realized_modularity)
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.dense_sweep import (dense_modularity_cuda,
-                                                 edge_rows)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import dense_sweep as ds
 
     if min(launches) == 0:
         raise AssertionError("the dense standard detect() launched no "
@@ -1185,35 +1326,94 @@ def dense_sweep_phase(launches) -> list:
             if not equal:
                 raise AssertionError(f"dense_half_sweep {name}")
             cases.append(args["cuda"])
+    log(f"  dense stress checks: {dense_stress_checks()} sweeps and "
+        f"modularities equal")
+
+    clock_mhz = max_sm_clock_mhz()
+    stream = torch.cuda.current_stream().cuda_stream
+    noop = _build.bind("dense_sweep", "dense_noop_launch", (ctypes.c_void_p,))
+    floor_ms = events_ms(lambda: noop(stream))
+    floor_device_us = dense_device_us(lambda: noop(stream), ("dense_noop",))
+    floor_wrapper_ms = median_ms(ds.noop_launch)
+    floor_host_us = host_call_us(ds.noop_launch)
+    log(f"  empty launch: {floor_ms} ms a launch back to back (events), "
+        f"device {floor_device_us} us (profiler), {floor_wrapper_ms} ms "
+        f"through its Python wrapper ({floor_host_us} us of host a call)")
+
     (args, kw) = cases[0]
-    rows = edge_rows(args[0], nv)
+    rows = ds.edge_rows(args[0], nv)
+    e_src, e_dst, e_w, e_C, e_K, e_Sigma, two_m, e_mov = args
+    # with the gain's sum, as earlier runs timed it, and as the sweep loop
+    # calls it (no gain)
     ms = median_ms(lambda: _half_sweep_dense(*args, rows=rows, **kw))
+    loop_ms = median_ms(lambda: _half_sweep_dense(*args, rows=rows,
+                                                  gain=False, **kw))
+    host_us = host_call_us(
+        lambda: ds.dense_half_sweep_cuda(rows, *args[1:], **kw))
     plain_ms = median_ms(lambda: _half_sweep_dense_plain(*args, **kw))
-    # each input read once and each output written once: order, dst, w an
+    device_us = dense_device_us(
+        lambda: ds.dense_half_sweep_cuda(rows, *args[1:], **kw),
+        ("dense_rows", "dense_sigma"))
+    out = ds.dense_half_sweep_cuda(rows, *args[1:], **kw)
+    plan = ds.sweep_plan(nv)
+    assert plan["scratch_floats"] == 0
+    sweep = _build.bind("dense_sweep", "dense_half_sweep", ds._ARGS)
+    ptrs = ([x.data_ptr() for x in (rows[0], rows[1], e_dst, e_w, e_C, e_K,
+                                    e_Sigma, two_m, e_mov)]
+            + [kw["target_ok"].data_ptr(), int(kw["anchored"]), nv]
+            + [out[i].data_ptr() for i in (0, 2, 3, 4, 1)]
+            + [None, plan["grid"], plan["rows_smem"], plan["sigma_smem"],
+               stream])
+    bare_ms = events_ms(lambda: sweep(*ptrs))
+    # The work counted is what the kernel needs on this case's edges: the
+    # live ones, those of the rows below the ghost row (no output reads a
+    # cell of the ghost row, and the kernel skips its padding edges).  Each
+    # input read once and each output written once: order, dst, w a live
     # edge; C, K, Sigma, movable, target_ok and row_ptr a vertex; C_new,
     # Sigma_new, best, move, want a vertex.  Operations: Eq. 2 (eight
     # float32 operations) on each cell that holds weight, the only cells
-    # whose score is read (W_all > 0 or W_frz > 0: at most m, counted on
-    # this case's edges), the edge folds (two adds an edge) and the Sigma
-    # recompute (nv adds).
-    e_src, e_dst, e_w, e_C = args[0], args[1], args[2], args[3]
-    held = (e_src != e_dst) & (e_w > 0)
+    # whose score is read (W_all > 0 or W_frz > 0), the edge folds (two
+    # adds a live edge) and the Sigma recompute (nv adds).  Chain: the
+    # longest cell's edges (the rows' folds), then the largest new
+    # community (Sigma's), one after the other
+    live = e_src < nv - 1
+    m_live = int(live.sum())
+    held = live & (e_src != e_dst) & (e_w > 0)
     cells = int(torch.unique(e_src[held].long() * nv
                              + e_C[e_dst[held]].long()).numel())
-    nbytes = 12 * m + (4 + 4 + 4 + 1 + 1 + 4) * nv + (4 + 4 + 4 + 1 + 1) * nv
-    nops = 8 * cells + 2 * m + nv
+    keys = e_src[live].long() * nv + e_C[e_dst[live].long()].long()
+    longest_cell = int(torch.unique(keys, return_counts=True)[1].max())
+    largest_comm = int(torch.bincount(out[0].long(), minlength=nv).max())
+    chain = longest_cell + largest_comm
+    nbytes = (12 * m_live + (4 + 4 + 4 + 1 + 1 + 4) * nv
+              + (4 + 4 + 4 + 1 + 1) * nv)
+    nops = 8 * cells + 2 * m_live + nv
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / F32_FLOPS_PER_S * 1e3
-    log(f"  dense_half_sweep at nv={nv}, m={m} ({cells} cells with weight): "
-        f"ms={ms}  plain_ms={plain_ms}  bound_ms={max(bytes_ms, ops_ms)} "
-        f"(bytes {bytes_ms}, operations {ops_ms})  launches in the dense "
-        f"standard detect()={launches}")
+    chain_ms = chain * FADD_CYCLES / (clock_mhz * 1e6) * 1e3
+    bound_ms = max(bytes_ms, ops_ms, chain_ms)
+    device_ms = None if device_us is None else device_us / 1e3
+    log(f"  dense_half_sweep at nv={nv}, m={m} ({m_live} live edges, "
+        f"{cells} cells with weight): host_us={host_us} (the wrapper)  "
+        f"ms={ms} (_half_sweep_dense with the gain's sum)  loop_ms="
+        f"{loop_ms} (without it, as the sweep loop calls it)  "
+        f"device_ms={device_ms} (profiler: "
+        f"dense_rows + dense_sigma)  bare_ms={bare_ms} (events, back to "
+        f"back)  floor_ms={floor_ms}  plain_ms={plain_ms}  bound_ms="
+        f"{bound_ms} (bytes {bytes_ms}, operations {ops_ms}, chain "
+        f"{chain_ms}: {longest_cell} adds of the longest cell + "
+        f"{largest_comm} of the largest community x {FADD_CYCLES} cycles at "
+        f"{clock_mhz:.0f} MHz)  launches in the dense standard detect()="
+        f"{launches[0]}")
     sweep_entry = dict(
         name="dense_half_sweep", route="cuda", source=DENSE_SOURCE,
         replaces=DENSE_REPLACES, launches=launches[0], max_abs_err=0.0,
-        ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None)
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes" if bytes_ms >= max(ops_ms, chain_ms)
+        else "operations", library_ms=None, loop_ms=loop_ms,
+        host_us=host_us, device_ms=device_ms, bare_ms=bare_ms,
+        floor_ms=floor_ms, m_live=m_live,
+        chain_bound_ms=chain_ms, chain_adds=chain, sm_clock_mhz=clock_mhz)
 
     # the sweep loop's realized modularity, kernel vs plain, card and CPU
     q = {}
@@ -1223,29 +1423,56 @@ def dense_sweep_phase(launches) -> list:
         K = ops.segreduce_sorted(gd.w, gd.src, nv, op="sum")
         Sigma = ops.segment_sum_inorder(K, Cd, nv)
         q[d] = (gd.src, gd.dst, gd.w, Cd, Sigma, gd.total_weight_2m())
-    got = dense_modularity_cuda(*q["cuda"])
+    got = ds.dense_modularity_cuda(*q["cuda"])
     plain = realized_modularity(*q["cuda"])
     cpu = realized_modularity(*q["cpu"])
     equal = same_bits(got, plain) and same_bits(got, cpu)
-    q_ms = median_ms(lambda: dense_modularity_cuda(*q["cuda"]))
+    q_ms = median_ms(lambda: ds.dense_modularity_cuda(*q["cuda"]))
+    q_host_us = host_call_us(lambda: ds.dense_modularity_cuda(*q["cuda"]))
     q_plain_ms = median_ms(lambda: realized_modularity(*q["cuda"]))
+    # its launcher zeroes the ticket on the stream first: a device memset
+    q_device_us = dense_device_us(
+        lambda: ds.dense_modularity_cuda(*q["cuda"]),
+        ("dense_modularity_kernel", "Memset"))
+    qp = ds.modularity_plan(m, nv)
+    scratch = torch.empty(qp["scratch_floats"], dtype=torch.float32,
+                          device="cuda")
+    modularity = _build.bind("dense_sweep", "dense_modularity", ds._Q_ARGS)
+    q_ptrs = ([x.data_ptr() for x in q["cuda"]]
+              + [m, nv, qp["n_int"], qp["blocks"], scratch.data_ptr(),
+                 qp["half"], scratch[-1].data_ptr(), stream])
+    q_bare_ms = events_ms(lambda: modularity(*q_ptrs))
+    if not bits_equal(scratch[-1], got):
+        raise AssertionError("a bare dense_modularity launch differs")
     # src, dst, w an edge and C, Sigma a vertex read once; one value
-    # written; an add an edge and a multiply and an add a vertex
+    # written; an add an edge and a multiply and an add a vertex; the
+    # chain: the longer of the two trees' in-order folds
     q_bytes_ms = (12 * m + 8 * nv + 4) / HBM_BYTES_PER_S * 1e3
     q_ops_ms = (m + 2 * nv) / F32_FLOPS_PER_S * 1e3
+    q_chain = max(fold_chain(m), fold_chain(nv))
+    q_chain_ms = q_chain * FADD_CYCLES / (clock_mhz * 1e6) * 1e3
+    q_bound_ms = max(q_bytes_ms, q_ops_ms, q_chain_ms)
+    q_device_ms = None if q_device_us is None else q_device_us / 1e3
     log(f"  dense_modularity at nv={nv}, m={m}: kernel == plain on the card "
         f"== plain on the CPU (bits)={equal}  Q={float(got)!r}  ms={q_ms}  "
-        f"plain_ms={q_plain_ms}  bound_ms={max(q_bytes_ms, q_ops_ms)}  "
-        f"launches in the dense standard detect()={launches[1]}")
+        f"host_us={q_host_us}  "
+        f"device_ms={q_device_ms}  bare_ms={q_bare_ms}  floor_ms="
+        f"{floor_ms}  plain_ms={q_plain_ms}  bound_ms={q_bound_ms} (bytes "
+        f"{q_bytes_ms}, operations {q_ops_ms}, chain {q_chain_ms}: "
+        f"{q_chain} adds)  launches in the dense standard detect()="
+        f"{launches[1]}")
     if not equal:
         raise AssertionError("dense_modularity differs from its plain "
                              "version")
     q_entry = dict(
         name="dense_modularity", route="cuda", source=DENSE_SOURCE,
         replaces=DENSE_Q_REPLACES, launches=launches[1], max_abs_err=0.0,
-        ms=q_ms, plain_ms=q_plain_ms, bound_ms=max(q_bytes_ms, q_ops_ms),
-        bound_by="bytes" if q_bytes_ms >= q_ops_ms else "operations",
-        library_ms=None)
+        ms=q_ms, plain_ms=q_plain_ms, bound_ms=q_bound_ms,
+        bound_by="bytes" if q_bytes_ms >= max(q_ops_ms, q_chain_ms)
+        else "operations", library_ms=None, host_us=q_host_us,
+        device_ms=q_device_ms,
+        bare_ms=q_bare_ms, floor_ms=floor_ms, chain_bound_ms=q_chain_ms,
+        chain_adds=q_chain, sm_clock_mhz=clock_mhz)
     return [sweep_entry, q_entry]
 
 
@@ -3743,6 +3970,10 @@ def main(argv=None) -> int:
                     "calls of each segsum, cumsum and spmm case of phase 5, "
                     "one engine batch a bucket of phase 6 and phase 8's "
                     "replay at 60/s too")
+    ap.add_argument("--dense", action="store_true",
+                    help="run phase 1 and phase 3's dense scan only (its "
+                    "detect() runs, its kernels against their plain "
+                    "versions and their times), and print no result")
     ap.add_argument("--phase12", action="store_true",
                     help="run phase 1 and phase 12 only, and print no "
                     "result (a quick check of the launch layer)")
@@ -3779,6 +4010,14 @@ def main(argv=None) -> int:
         for line in ptxas_lines(reports.get(source, ""), kernel) or [
                 f"{source} cached: no build report in this run"]:
             log(f"  ptxas: {line}")
+
+    if args.dense:
+        log("phase 3: the dense scan, on the card")
+        t0 = time.perf_counter()
+        dense_sweep_phase(dense_phase()[1])
+        log(f"  phase 3 (dense): {time.perf_counter() - t0} s")
+        log(f"chip_smoke --dense total: {time.perf_counter() - t_start} s")
+        return 0
 
     if args.phase12:
         log("phase 12: the step builder, the dry run and the roofline, on "

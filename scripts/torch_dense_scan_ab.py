@@ -12,10 +12,11 @@ script once a version, alternating them in one command (A, B, B, A):
 (for a tree without the CLI).  Each run prints one JSON line with, on the
 card (``chip_smoke.py``'s graphs):
 
-* ``dense_detect``: ``detect()`` with ``scan='dense'``, standard tier, on
-  phase 3's graph (``nv = 1025``): the median wall of ``--reps`` calls
-  after one warm call, its segment-reduce (B.1) launches and a digest of
-  its labels (equal digests: the same partition);
+* ``dense_detect``: ``detect()`` with ``scan='dense'`` on phase 3's graph
+  (``nv = 1025``), for the standard tier with ``sp-pj`` and with
+  ``refine`` and for max-quality: each the median wall of ``--reps``
+  calls after one warm call, its segment-reduce (B.1) launches and a
+  digest of its labels (equal digests: the same partition);
 * ``batches``: the engine's standard ``detect_batch`` of phase 6's two
   families of 32, each the median wall of three after ``warm(bucket)``,
   with its B.1 launches;
@@ -53,22 +54,33 @@ def _synced(fn):
     return out, time.perf_counter() - t0, segreduce_sorted_cuda.launches
 
 
+DENSE_RUNS = (("standard", "sp-pj"), ("standard", "refine"),
+              ("max-quality", "sp-pj"))
+
+
 def dense_detect(reps: int) -> dict:
-    from repro_torch.core import DetectOptions, detect
+    """Each of :data:`DENSE_RUNS` (tier, split policy): its median wall,
+    walls, B.1 launches, labels digest and modularity."""
+    from repro_torch.core import DetectOptions, LouvainConfig, detect
     from repro_torch.graph import sbm_graph
 
     g = sbm_graph(1024, 16, 0.2, 0.003, seed=3, n_cap=1024, m_cap=16384,
                   device="cuda")[0]
-    opts = DetectOptions(scan="dense")
-    detect(g, options=opts)
-    walls, launches, res = [], None, None
-    for _ in range(reps):
-        res, wall, launches = _synced(lambda: detect(g, options=opts))
-        walls.append(wall)
-    digest = hashlib.sha256(res.labels.cpu().numpy().tobytes()).hexdigest()
-    return dict(median_s=statistics.median(walls), walls_s=walls,
-                launches=launches, labels_sha256=digest[:16],
-                modularity=res.modularity)
+    out = {}
+    for algorithm, split in DENSE_RUNS:
+        opts = DetectOptions(algorithm=algorithm, scan="dense",
+                             louvain=LouvainConfig(split=split))
+        detect(g, options=opts)
+        walls, launches, res = [], None, None
+        for _ in range(reps):
+            res, wall, launches = _synced(lambda: detect(g, options=opts))
+            walls.append(wall)
+        digest = hashlib.sha256(res.labels.cpu().numpy().tobytes())
+        out[f"{algorithm}/{split}"] = dict(
+            median_s=statistics.median(walls), walls_s=walls,
+            launches=launches, labels_sha256=digest.hexdigest()[:16],
+            modularity=res.modularity)
+    return out
 
 
 def batches() -> dict:
@@ -128,6 +140,8 @@ def main(argv=None) -> dict:
                     help="a serve_communities.py to load by path")
     ap.add_argument("--label", default="")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--dense-only", action="store_true",
+                    help="time the dense detect() runs only")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -140,8 +154,9 @@ def main(argv=None) -> dict:
     _build.build()
     rep = dict(label=args.label, package=str(Path(repro_torch.__file__)
                                              .parent),
-               dense_detect=dense_detect(args.reps), batches=batches(),
-               tiers=tiers(args.cli))
+               dense_detect=dense_detect(args.reps))
+    if not args.dense_only:
+        rep.update(batches=batches(), tiers=tiers(args.cli))
     print(json.dumps(rep))
     return rep
 

@@ -33,6 +33,8 @@ bits, on the same kernel.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -83,6 +85,18 @@ def _parity_table(ids: torch.Tensor, n: int) -> torch.Tensor:
     return _parity(ids, salts)
 
 
+@functools.lru_cache(maxsize=32)
+def _parity_masks(nv: int, n: int, device: torch.device):
+    """``(pbits == 0, pbits == 1)`` for the :func:`_parity_table` of the
+    vertex ids ``[0, nv)``: bool ``[n, nv]`` each, the movers and the
+    targets of each parity in each of ``n`` sweeps.  Cached by shape,
+    since a service sweeps graphs of the same few widths over and over;
+    callers only read them."""
+    pbits = _parity_table(torch.arange(nv, dtype=torch.int32, device=device),
+                          n)
+    return pbits == 0, pbits == 1
+
+
 def realized_modularity(src, dst, w, C, Sigma, two_m, *, group=None,
                         gidx=None, m_total=None) -> torch.Tensor:
     """Q of the current partition: two flat reductions (internal edge
@@ -100,7 +114,8 @@ def realized_modularity(src, dst, w, C, Sigma, two_m, *, group=None,
     Without ``gidx`` (the approximate harness, ``community_pass``) the
     internal weight is summed by vertex, as the reference's is there.
     """
-    w_in = torch.where(C[src] == C[dst], w, 0.0)
+    w_in = torch.where(torch.index_select(C, 0, src)
+                       == torch.index_select(C, 0, dst), w, 0.0)
     if group is not None and gidx is not None:
         full = torch.zeros(m_total + 1, dtype=torch.float32, device=C.device)
         full[gidx.long()] = w_in
@@ -286,7 +301,7 @@ def _half_sweep_scatter(src, dst, w, C, K, Sigma, two_m, movable,
 
 
 def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
-                      target_ok=None, anchored=True, rows=None):
+                      target_ok=None, anchored=True, rows=None, gain=True):
     """Dense twin of :func:`_half_sweep` for small ``nv``: the same
     contract and the same bits, with every decision taken on ``[nv, nv]``
     community matrices (row i: vertex i; column c: community c).
@@ -312,20 +327,22 @@ def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
     launches in place of the dozens of :func:`_half_sweep_dense_plain`, its
     plain version, with the same bits; ``rows`` (``dense_sweep.edge_rows``
     of ``src``) lets a caller share the edges' row order across sweeps.
+    ``gain=False`` returns ``None`` for the gain, which the sweep loop
+    never reads (on the card its sum would cost two more launches).
     """
     if not C.is_cuda:
         return _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m,
-                                       movable, target_ok, anchored)
+                                       movable, target_ok, anchored, gain)
     if rows is None:
         rows = edge_rows(src, C.shape[0])
     C_new, Sigma_new, move, want, best = dense_half_sweep_cuda(
         rows, dst, w, C, K, Sigma, two_m, movable, target_ok, anchored)
-    return C_new, Sigma_new, move, torch.sum(torch.where(move, best, 0.0)), \
-        want
+    return C_new, Sigma_new, move, \
+        torch.sum(torch.where(move, best, 0.0)) if gain else None, want
 
 
 def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
-                            target_ok=None, anchored=True):
+                            target_ok=None, anchored=True, gain=True):
     """The plain PyTorch version of :func:`_half_sweep_dense` (on any
     device; the CPU's route), with the ``[nv, nv]`` matrices' bits.
 
@@ -341,37 +358,41 @@ def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
     vector."""
     nv = C.shape[0]
     ghost = nv - 1
+    take = torch.index_select   # a 1-D gather, half the host time of x[idx]
 
     # --- pass A: true and anchored K_{i->c} per cell an edge reaches -----
     not_self = src != dst  # exclude self-loops from scan (paper Alg. 4)
-    w_all = torch.where(not_self, w, 0.0)
-    w_frozen = (torch.where(not_self & ~movable[dst], w, 0.0)
-                if anchored else w_all)
-    cell, perm = torch.sort(src.to(torch.int64) * nv + C[dst], stable=True)
-    cell, run = torch.unique_consecutive(cell, return_inverse=True)
-    W = ops.segreduce_sorted(torch.stack([w_all, w_frozen], dim=1)[perm],
-                             run.to(torch.int32), cell.shape[0], op="sum")
-    W_all = W[:, 0]      # true K_{i->c} of each reached cell
-    W_frz = W[:, 1]      # anchored K_{i->c}
-    i = cell // nv
+    cell, run = torch.unique(src.to(torch.int64) * nv + take(C, 0, dst),
+                             return_inverse=True)
+    run, n_cells = run.to(torch.int32), cell.shape[0]
+    W_all = ops.segment_sum_inorder(torch.where(not_self, w, 0.0), run,
+                                    n_cells)
+    if anchored:         # anchored K_{i->c}: frozen neighbours only
+        W_frz = ops.segment_sum_inorder(
+            torch.where(not_self & ~take(movable, 0, dst), w, 0.0), run,
+            n_cells)
+    else:
+        W_frz = W_all
+    i = torch.div(cell, nv, rounding_mode="floor")
     c = cell - i * nv
-    Ci = C[i]
+    Ci = take(C, 0, i)
 
     # --- K_{i->d}: true weight to own community (excluding self) ---------
     own = c == Ci
-    K_own = torch.zeros(nv, dtype=W.dtype, device=W.device).index_add_(
-        0, i, torch.where(own, W_all, 0.0))
+    K_own = torch.zeros(nv, dtype=W_all.dtype, device=W_all.device
+                        ).index_add_(0, i, torch.where(own, W_all, 0.0))
 
     # --- delta-modularity per candidate cell (paper Eq. 2) ---------------
-    Ki = K[i]
-    dq = (
-        2.0 * (W_all - K_own[i]) / two_m
-        - 2.0 * Ki * (Ki + Sigma[c] - Sigma[Ci]) / (two_m * two_m)
-    )
-    geom = (i < ghost) & (c < ghost) & ~own
-    cand = geom & (W_frz > 0.0) & movable[i]
+    # 2.0 * (W - K_own) / two_m - 2.0 * Ki * (Ki + Sigma_c - Sigma_d)
+    #   / (two_m * two_m), each doubling as x + x (exact: the same bits)
+    Ki = take(K, 0, i)
+    d = W_all - take(K_own, 0, i)
+    dq = (d + d) / two_m - (Ki + Ki) * (
+        Ki + take(Sigma, 0, c) - take(Sigma, 0, Ci)) / (two_m * two_m)
+    geom = (torch.maximum(i, c) < ghost) & ~own
+    cand = geom & (W_frz > 0.0) & take(movable, 0, i)
     if target_ok is not None:
-        cand = cand & target_ok[c]
+        cand = cand & take(target_ok, 0, c)
 
     def row_max(v):
         return torch.full((nv,), NEG, dtype=v.dtype, device=v.device
@@ -380,19 +401,22 @@ def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
     want = row_max(torch.where(geom & (W_all > 0.0), dq, NEG)) > 0.0
 
     # --- argmax per source vertex (min community id breaks ties) ---------
+    # a row moves only to a positive best, which only candidates reach
+    # (the rest score NEG): so c_star < ghost, and c_star of a row that
+    # does not move is never read
     dq_cand = torch.where(cand, dq, NEG)
     best = row_max(dq_cand)
     c_star = torch.full((nv,), seg.INT_MAX, dtype=torch.int64,
                         device=C.device).scatter_reduce_(
-        0, i, torch.where(cand & (dq_cand >= best[i]), c, seg.INT_MAX),
-        "amin").to(C.dtype)
-    move = (best > 0.0) & (c_star < ghost)
-    C_new = torch.where(move, c_star, C)
+        0, i, torch.where(dq_cand >= take(best, 0, i), c, seg.INT_MAX),
+        "amin")
+    move = best > 0.0
+    C_new = torch.where(move, c_star, C).to(C.dtype)
     C_new[ghost] = ghost
 
     # --- exact Sigma recompute: identical to the sort path ----------------
     Sigma_new = ops.segment_sum_inorder(K, C_new, nv)
-    gain = torch.sum(torch.where(move, best, 0.0))
+    gain = torch.sum(torch.where(move, best, 0.0)) if gain else None
     return C_new, Sigma_new, move, gain, want
 
 
@@ -457,13 +481,15 @@ def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
     tau = np.float32(tau)
     ids = torch.arange(nv, dtype=torch.int32, device=dev)
     scatter = False
-    pbits = None
+    masks = None
     if scan == "dense":
         sweep = _half_sweep_dense
         if adj is None:
             adj = dense_adjacency(src, dst, nv)
-        kw = dict(rows=edge_rows(src, nv)) if dev.type == "cuda" else {}
-        pbits = _parity_table(ids, max_iters)
+        kw = dict(gain=False)       # the loop never reads it
+        if dev.type == "cuda":
+            kw["rows"] = edge_rows(src, nv)
+        masks = _parity_masks(nv, max_iters, dev)
     elif scan == "sort":
         scatter = seg_impl == "scatter"
         sweep = _half_sweep_scatter if scatter else _half_sweep
@@ -491,15 +517,19 @@ def _move_loop(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters, phases,
     # converge only after two consecutive no-gain sweeps: a single sweep
     # can stall purely because of an unlucky parity roll
     while (it < 2 or dQ_iter > tau or dQ_prev > tau) and it < max_iters:
-        moved_any = torch.zeros(nv, dtype=torch.bool, device=dev)
-        pbit = _hash_parity(ids, it) if pbits is None else pbits[it]
+        if masks is None:
+            pbit = _hash_parity(ids, it)
+            par = (pbit == 0, pbit == 1)
+        else:
+            par = (masks[0][it], masks[1][it])
+        moved_any = None
         for ph, tp in phases:
-            movable = active if ph is None else active & (pbit == ph)
-            target_ok = None if tp is None else (pbit == tp)
+            movable = active if ph is None else active & par[ph]
+            target_ok = None if tp is None else par[tp]
             C, Sigma, moved, _, want = sweep(
                 src, dst, w, C, K, Sigma, two_m, movable,
                 target_ok=target_ok, anchored=ph is not None, **kw)
-            moved_any = moved_any | moved
+            moved_any = moved if moved_any is None else moved_any | moved
         q_now = realized(C, Sigma)
         if prune:
             # neighbours of moved vertices wake up; everyone else sleeps

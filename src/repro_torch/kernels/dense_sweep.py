@@ -1,42 +1,87 @@
-"""The wrapper of the dense half-sweep kernel (``csrc/dense_sweep.cu``).
+"""The wrappers of the dense scan's kernels (``csrc/dense_sweep.cu``).
 
 ``dense_half_sweep_cuda`` runs one half-sweep of the dense scan's local
 move (``core/local_move.py:_half_sweep_dense``, whose PyTorch body is its
-plain version) in two launches: a block a vertex row folds the row's
-edges in index order into per-community sums and takes the row's Eq.-2
-argmax; then a thread a community recomputes Sigma in index order.  Up to
-:data:`MAX_NV` a row's two ``[nv]`` sums lie in shared memory; past it in
-a global scratch of :data:`SCRATCH_BLOCKS` slices of two rows, one for
-each block of a grid that walks the vertex rows, so any ``nv`` the plain
-version takes runs on the card.  It has no TPU counterpart: the
-reference's dense scan (``repro/core/local_move.py:_half_sweep_dense``)
-is XLA code.  The plain version spends dozens of PyTorch launches a
-half-sweep, and on a small graph each costs more host time than the work
-(ROADMAP C.12).
-Bound: bytes, the edges (``12 * m``) and seven ``[nv]`` vectors read, five
-written, against eight float operations a cell that holds weight (at most
-``m``), two an edge and ``nv`` adds for Sigma.
+plain version) in two launches: a warp a vertex row folds the row's edges,
+32 at a time, onto their communities in index order and takes the row's
+Eq.-2 argmax over the communities its edges reach; then one block
+groups every 32-vertex window by new community at once, and one warp
+walks the windows in vertex order folding each community's K into Sigma
+(no sort).  ``dense_modularity_cuda`` is the
+sweep loop's realized modularity in one launch: a block a 1,024-value leaf
+chunk of either ``ops.sum_inorder`` tree, the last block by a ticket in the
+launch's own scratch folding the upper levels.  Neither replaces a TPU kernel: the reference's dense
+scan and realized modularity (``repro/core/local_move.py:361
+_half_sweep_dense`` and ``:124 realized_modularity``) are XLA code.  Their
+plain versions spend dozens of PyTorch launches a call, and on a small
+graph each costs more host time than the work (ROADMAP C.12).
 
-``dense_modularity_cuda`` is the sweep loop's realized modularity in one
-launch (the plain version's ``ops.sum_inorder`` trees spend about two
-dozen).
+Bound: at the dense scan's sizes (``nv <= 1025``, ``m <= 16,384``) the
+bytes take under a microsecond, so each kernel is bound by its longest
+chain of dependent adds (every float sum folds in index order from +0.0:
+the longest cell's edges and the largest community for the half-sweep,
+1,024 leaf values and the upper levels for the modularity, 4 cycles an
+add) and by launch latency.  The design gathers and scores in parallel so
+that nothing but those folds is serial; see the source's note.
+
+Up to :data:`MAX_NV` a warp's accumulators (two ``[nv]`` float rows and an
+``[nv]`` tag row) and Sigma's walk lie in shared memory; past it in one
+global scratch, :data:`SCRATCH_WARPS` warps walking the vertex rows, so
+any ``nv`` the plain version takes runs on the card.  :func:`sweep_plan`
+and :func:`modularity_plan` are the launches' host-side plans.
 
 ``dense_half_sweep_cuda.launches`` and ``dense_modularity_cuda.launches``
 count calls that launch (plain ints; one a call, though a half-sweep
-launches two kernels).
+launches two kernels); :func:`kernel_launches` counts the kernels
+themselves.  ``noop_launch`` launches an empty kernel, the floor under any
+launch's time (``chip_smoke.py`` phase 3 measures it).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
 _ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int, ctypes.c_int) + \
-    (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_void_p)
-MAX_NV = 24 * 1024      # two [nv] float32 rows in a block's shared memory
-SCRATCH_BLOCKS = 1024   # past MAX_NV: the grid, a scratch slice a block
+    (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+WARPS = 4               # csrc kWarps: rows in flight a block
+MAX_NV = 3072           # WARPS x three [nv] rows of 4 bytes in shared
+#                         memory, and Sigma's four in 48 KB
+SCRATCH_WARPS = 512     # past MAX_NV: the warps of the grid, a slice each
+FLAT_CHUNK = 1024       # ops.FLAT_CHUNK: values one in-order fold takes
+
+
+@functools.lru_cache(maxsize=64)
+def sweep_plan(nv: int) -> dict:
+    """The half-sweep's launch plan for ``nv`` vertex slots (the kernels
+    take it as given): the rows kernel's grid, each kernel's dynamic
+    shared memory, the global scratch (floats, 0 while everything fits in
+    shared memory), and the bytes of the one output allocation."""
+    shared = nv <= MAX_NV
+    grid = -(-nv // WARPS)                      # a warp a row
+    if not shared:
+        grid = min(grid, SCRATCH_WARPS // WARPS)  # warps walk the rows
+    return dict(
+        grid=grid, rows_smem=3 * 4 * nv * WARPS if shared else 0,
+        sigma_smem=16 * nv if shared else 0,
+        scratch_floats=0 if shared else (3 * grid * WARPS + 2) * nv,
+        out_bytes=14 * nv)
+
+
+@functools.lru_cache(maxsize=64)
+def modularity_plan(m: int, nv: int) -> dict:
+    """The modularity's launch plan: the leaf chunks of each tree (a block
+    each), and the scratch: ``half`` floats a tree (twice its level-0
+    chunks at least, room for two levels), then the launch's ticket (an
+    integer word the launcher zeroes on the stream) and the result."""
+    n_int = max(-(-m // FLAT_CHUNK), 1)
+    n_sig = max(-(-nv // FLAT_CHUNK), 1)
+    half = 2 * max(n_int, n_sig)
+    return dict(blocks=n_int + n_sig, n_int=n_int, n_sig=n_sig, half=half,
+                scratch_floats=2 * half + 2)
 
 
 def edge_rows(src: torch.Tensor, nv: int):
@@ -48,6 +93,41 @@ def edge_rows(src: torch.Tensor, nv: int):
     return order.to(torch.int32), row_ptr
 
 
+def _launch(fn, index: int, *args) -> int:
+    """``fn(*args, stream)`` on card ``index`` and its current stream,
+    entering the device's context only where another card is current."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
+
+
+def _card_index(tensors, two_m, what: str) -> int:
+    """The card all of ``tensors`` (contiguous) and the 0-dim float32
+    ``two_m`` lie on; raises otherwise."""
+    index = tensors[0].get_device()
+    if index < 0 or not all(t.get_device() == index and t.is_contiguous()
+                            for t in tensors):
+        raise ValueError(f"the {what} takes contiguous tensors on one CUDA "
+                         "device")
+    if not (isinstance(two_m, torch.Tensor) and two_m.get_device() == index
+            and two_m.dim() == 0 and two_m.dtype == torch.float32):
+        raise ValueError("two_m must be a 0-dim float32 tensor on the card")
+    return index
+
+
+def sweep_outputs(nv: int, device):
+    """The half-sweep's five ``[nv]`` outputs, ``(C_new, Sigma_new, move,
+    want, best)``, as views of one allocation (one split and three dtype
+    views: fewer host operations than five allocations)."""
+    n4 = 4 * nv
+    C_new, Sigma_new, best, move, want = torch.empty(
+        14 * nv, dtype=torch.bool, device=device).split((n4, n4, n4, nv, nv))
+    return (C_new.view(torch.int32), Sigma_new.view(torch.float32), move,
+            want, best.view(torch.float32))
+
+
 def dense_half_sweep_cuda(rows, dst, w, C, K, Sigma, two_m, movable,
                           target_ok=None, anchored=True):
     """One dense half-sweep on the card: ``(C_new, Sigma_new, move, want,
@@ -55,21 +135,14 @@ def dense_half_sweep_cuda(rows, dst, w, C, K, Sigma, two_m, movable,
     (the plain version's ``gain`` is its sum over moved rows).  ``rows``
     is :func:`edge_rows` of the edges' sources; ``two_m`` a 0-dim float32
     tensor on the card (as the plain version divides by it); ``movable``
-    and ``target_ok`` bool ``[nv]``.  Raises on anything the kernel does
-    not take."""
+    and ``target_ok`` bool ``[nv]``.  The five outputs are views of one
+    allocation.  Raises on anything the kernel does not take."""
     order, row_ptr = rows
     nv = C.shape[0]
-    dev = C.device
-    tensors = [order, row_ptr, dst, w, C, K, Sigma, movable]
+    tensors = [C, order, row_ptr, dst, w, K, Sigma, movable]
     if target_ok is not None:
         tensors.append(target_ok)
-    if not all(t.is_cuda and t.device == dev and t.is_contiguous()
-               for t in tensors):
-        raise ValueError("the dense sweep takes contiguous tensors on one "
-                         "CUDA device")
-    if not (isinstance(two_m, torch.Tensor) and two_m.device == dev
-            and two_m.dim() == 0 and two_m.dtype == torch.float32):
-        raise ValueError("two_m must be a 0-dim float32 tensor on the card")
+    index = _card_index(tensors, two_m, "dense sweep")
     if (order.dtype, row_ptr.dtype, dst.dtype, C.dtype) != (torch.int32,) * 4 \
             or (w.dtype, K.dtype, Sigma.dtype) != (torch.float32,) * 3 \
             or movable.dtype != torch.bool \
@@ -79,35 +152,31 @@ def dense_half_sweep_cuda(rows, dst, w, C, K, Sigma, two_m, movable,
     if nv < 1 or row_ptr.shape[0] != nv + 1 or K.shape[0] != nv \
             or Sigma.shape[0] != nv or movable.shape[0] != nv:
         raise ValueError("the dense sweep takes nv >= 1 and [nv] vectors")
-    C_new = torch.empty(nv, dtype=torch.int32, device=dev)
-    Sigma_new = torch.empty(nv, dtype=torch.float32, device=dev)
-    move = torch.empty(nv, dtype=torch.bool, device=dev)
-    want = torch.empty(nv, dtype=torch.bool, device=dev)
-    best = torch.empty(nv, dtype=torch.float32, device=dev)
-    blocks = min(nv, SCRATCH_BLOCKS)
-    scratch = (None if nv <= MAX_NV else
-               torch.empty(2 * nv * blocks, dtype=torch.float32, device=dev))
-    launch = _build.bind("dense_sweep", "dense_half_sweep", _ARGS)
-    with torch.cuda.device(dev):
-        err = launch(order.data_ptr(), row_ptr.data_ptr(), dst.data_ptr(),
-                     w.data_ptr(), C.data_ptr(), K.data_ptr(),
-                     Sigma.data_ptr(), two_m.data_ptr(), movable.data_ptr(),
-                     None if target_ok is None else target_ok.data_ptr(),
-                     int(anchored), nv, C_new.data_ptr(), move.data_ptr(),
-                     want.data_ptr(), best.data_ptr(), Sigma_new.data_ptr(),
-                     None if scratch is None else scratch.data_ptr(),
-                     blocks, torch.cuda.current_stream(dev).cuda_stream)
+    plan = sweep_plan(nv)
+    outs = C_new, Sigma_new, move, want, best = sweep_outputs(nv, C.device)
+    scratch = (torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                           device=C.device)
+               if plan["scratch_floats"] else None)
+    err = _launch(_build.bind("dense_sweep", "dense_half_sweep", _ARGS),
+                  index, order.data_ptr(), row_ptr.data_ptr(),
+                  dst.data_ptr(), w.data_ptr(), C.data_ptr(), K.data_ptr(),
+                  Sigma.data_ptr(), two_m.data_ptr(), movable.data_ptr(),
+                  None if target_ok is None else target_ok.data_ptr(),
+                  int(anchored), nv, C_new.data_ptr(), move.data_ptr(),
+                  want.data_ptr(), best.data_ptr(), Sigma_new.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(),
+                  plan["grid"], plan["rows_smem"], plan["sigma_smem"])
     _build.check(err, "dense_half_sweep")
     dense_half_sweep_cuda.launches += 1
-    return C_new, Sigma_new, move, want, best
+    return outs
 
 
 dense_half_sweep_cuda.launches = 0
 
 _Q_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_void_p, ctypes.c_longlong,
                                     ctypes.c_void_p, ctypes.c_void_p)
-FLAT_CHUNK = 1024     # ops.FLAT_CHUNK: values one in-order fold takes
 
 
 def dense_modularity_cuda(src, dst, w, C, Sigma, two_m) -> torch.Tensor:
@@ -116,32 +185,45 @@ def dense_modularity_cuda(src, dst, w, C, Sigma, two_m) -> torch.Tensor:
     launch: the two ``ops.sum_inorder`` trees, over the masked weights and
     over Sigma^2, and ``internal / 2m - sig2 / (2m * 2m)``, the same bits.
     Returns a 0-dim float32 tensor on the card."""
-    dev = C.device
-    tensors = (src, dst, w, C, Sigma)
-    if not all(t.is_cuda and t.device == dev and t.is_contiguous()
-               for t in tensors):
-        raise ValueError("the dense modularity takes contiguous tensors on "
-                         "one CUDA device")
-    if not (isinstance(two_m, torch.Tensor) and two_m.device == dev
-            and two_m.dim() == 0 and two_m.dtype == torch.float32):
-        raise ValueError("two_m must be a 0-dim float32 tensor on the card")
+    index = _card_index((C, src, dst, w, Sigma), two_m, "dense modularity")
     if (src.dtype, dst.dtype, C.dtype) != (torch.int32,) * 3 \
             or (w.dtype, Sigma.dtype) != (torch.float32,) * 2:
         raise TypeError("the dense modularity takes int32 ids and float32 "
                         "weights")
     m, nv = src.shape[0], C.shape[0]
-    half = 2 * max(-(-max(m, nv) // FLAT_CHUNK), 1)
-    scratch = torch.empty(2 * half + 1, dtype=torch.float32, device=dev)
-    q = scratch[2 * half]
-    launch = _build.bind("dense_sweep", "dense_modularity", _Q_ARGS)
-    with torch.cuda.device(dev):
-        err = launch(src.data_ptr(), dst.data_ptr(), w.data_ptr(),
-                     C.data_ptr(), Sigma.data_ptr(), two_m.data_ptr(), m, nv,
-                     scratch.data_ptr(), half, q.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+    plan = modularity_plan(m, nv)
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=C.device)
+    q_ptr = scratch.data_ptr() + 4 * (plan["scratch_floats"] - 1)
+    err = _launch(_build.bind("dense_sweep", "dense_modularity", _Q_ARGS),
+                  index, src.data_ptr(), dst.data_ptr(), w.data_ptr(),
+                  C.data_ptr(), Sigma.data_ptr(), two_m.data_ptr(), m, nv,
+                  plan["n_int"], plan["blocks"], scratch.data_ptr(),
+                  plan["half"], q_ptr)
     _build.check(err, "dense_modularity")
     dense_modularity_cuda.launches += 1
-    return q
+    return scratch[-1]
 
 
 dense_modularity_cuda.launches = 0
+
+
+KERNELS = ("dense_rows", "dense_sigma", "dense_modularity_kernel")
+
+
+def kernel_launches() -> dict:
+    """The kernels of ``csrc/dense_sweep.cu`` launched so far in this
+    process, by name (counted on the host where each launch is made)."""
+    count = _build.bind("dense_sweep", "dense_kernel_launches",
+                        (ctypes.c_int,), restype=ctypes.c_longlong)
+    return {name: count(k) for k, name in enumerate(KERNELS)}
+
+
+def noop_launch(device="cuda") -> None:
+    """Launch an empty kernel on ``device``'s current stream: the floor
+    under any launch's time on the card (not counted anywhere)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    _build.check(_launch(_build.bind("dense_sweep", "dense_noop_launch",
+                                     (ctypes.c_void_p,)), index),
+                 "dense_noop")

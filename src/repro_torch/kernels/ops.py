@@ -48,13 +48,12 @@ def segreduce_sorted(values: torch.Tensor, ids: torch.Tensor,
     ``jax.ops.segment_*`` family (0 / dtype-min / dtype-max).  A float32
     max or min segment that holds a NaN is NaN; +0 is above -0.
     """
+    if not _on(values, "segreduce_sorted"):
+        return ref.segreduce_sorted_ref(values, ids, num_segments, op=op)
     squeeze = values.dim() == 1
     v = values[:, None] if squeeze else values
-    if _on(v, "segreduce_sorted"):
-        out = segreduce_sorted_cuda(v.contiguous(), ids.contiguous(),
-                                    num_segments, op=op)
-    else:
-        out = ref.segreduce_sorted_ref(v, ids, num_segments, op=op)
+    out = segreduce_sorted_cuda(v.contiguous(), ids.contiguous(),
+                                num_segments, op=op)
     return out[:, 0] if squeeze else out
 
 
@@ -67,6 +66,9 @@ def segment_sum_inorder(values: torch.Tensor, ids: torch.Tensor,
     id, so the sorted segment sum that follows is the same left fold on
     every device, with no atomics.
     """
+    if not _on(values, "segment_sum_inorder"):
+        # the CPU's index_add_ walks the rows in index order: the same fold
+        return ref.segreduce_sorted_ref(values, ids, num_segments)
     s_ids, perm = torch.sort(ids, stable=True)
     return segreduce_sorted(values[perm], s_ids, num_segments, op="sum")
 

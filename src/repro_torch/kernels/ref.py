@@ -46,7 +46,15 @@ def segreduce_sorted_ref(values: torch.Tensor, ids: torch.Tensor,
     shape = (num_segments,) + tuple(values.shape[1:])
     if op == "sum":
         out = torch.zeros(shape, dtype=values.dtype, device=values.device)
-        return out.index_add_(0, ids, values)
+        if values.is_cuda or values.dim() == 1 or values.shape[1] > 8:
+            return out.index_add_(0, ids, values)
+        # the CPU's index_add_ takes a [M] vector in one scalar loop and a
+        # [M, D] matrix row by row through a tensor iterator, some 20x
+        # slower at D = 1 or 2: a few columns go one at a time (the same
+        # in-order fold, the same bits)
+        for d in range(values.shape[1]):
+            out[:, d].index_add_(0, ids, values[:, d])
+        return out
     if op not in _REDUCE:
         raise ValueError(f"op must be sum, max or min, got {op!r}")
     keyed = values.dtype == torch.float32

@@ -1214,9 +1214,10 @@ def test_dense_sweep_kernel_equals_plain(cuda, graph, target, anchored,
 
 @pytest.mark.parametrize("past", [False, True])
 def test_dense_sweep_kernel_at_the_shared_memory_limit(cuda, past):
-    """At ``MAX_NV`` a row's sums fill shared memory; one vertex more and
-    they lie in the global scratch, a block walking many rows.  Both give
-    the plain version's bits on random edges (self-loops included)."""
+    """At ``MAX_NV`` the warps' accumulators fill shared memory; one vertex
+    more and they lie in the global scratch, a warp walking many rows.
+    Both give the plain version's bits on random edges (self-loops
+    included)."""
     from repro_torch.core.local_move import (_half_sweep_dense,
                                              _half_sweep_dense_plain)
     from repro_torch.kernels.dense_sweep import MAX_NV
@@ -1295,6 +1296,85 @@ def test_dense_modularity_kernel_equals_plain(cuda, case):
                 plain.view(torch.int32).item(), (float(got), float(plain))
         out.append(plain.cpu())
     assert out[0].view(torch.int32).item() == out[1].view(torch.int32).item()
+
+
+# --- the dense kernels on the stress cases of tests/_torch_dense_cases.py,
+# and one vertex past the shared-memory limit --------------------------------
+
+DENSE_STRESS = ("hub", "one-community", "singletons", "m-ragged", "m-large",
+                "nv2", "masked", "past-max-nv")
+def _dense_case(name):
+    from _torch_dense_cases import dense_cases, past_max_nv_case
+
+    from repro_torch.kernels.dense_sweep import MAX_NV
+
+    if name == "past-max-nv":
+        return past_max_nv_case(MAX_NV)
+    return {c["name"]: c for c in dense_cases()}[name]
+
+
+def _dense_launches(fn):
+    """``(fn(), {kernel: launches})``: the dense kernels that ``fn``
+    launched, by name (those launched at least once)."""
+    from repro_torch.kernels.dense_sweep import kernel_launches
+
+    before = kernel_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    after = kernel_launches()
+    return out, {k: n - before[k] for k, n in after.items() if n > before[k]}
+
+
+def _same_bits(a, b) -> bool:
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["handshake", "parity", "all"])
+@pytest.mark.parametrize("name", DENSE_STRESS)
+def test_dense_kernels_equal_plain_on_stress_cases(cuda, name, variant):
+    """The half-sweep kernel (two launches: rows, then Sigma) and the
+    modularity kernel (one launch) against their plain versions on the
+    card, bit for bit, every output; a second launch gives the same bits."""
+    from repro_torch.core.local_move import (_half_sweep_dense,
+                                             _half_sweep_dense_plain,
+                                             realized_modularity)
+    from repro_torch.kernels.dense_sweep import (dense_half_sweep_cuda,
+                                                 dense_modularity_cuda)
+
+    c = _dense_case(name)
+    target, anchored = {"handshake": (True, True), "parity": (False, True),
+                        "all": (False, False)}[variant]
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x).copy()).to(cuda)
+
+    two_m = torch.tensor(np.float32(c["two_m"]), device=cuda)
+    args = (t(c["src"]), t(c["dst"]), t(c["w"]), t(c["C"]), t(c["K"]),
+            t(c["Sigma"]), two_m, t(c["movable"]))
+    kw = dict(target_ok=t(c["target_ok"]) if target else None,
+              anchored=anchored)
+    before = dense_half_sweep_cuda.launches
+    got, launched = _dense_launches(lambda: _half_sweep_dense(*args, **kw))
+    assert dense_half_sweep_cuda.launches == before + 1
+    assert launched == {"dense_rows": 1, "dense_sigma": 1}, launched
+    again = _half_sweep_dense(*args, **kw)
+    plain = _half_sweep_dense_plain(*args, **kw)
+    for what, a, b, p in zip(("C", "Sigma", "moved", "gain", "want"), got,
+                             again, plain):
+        assert _same_bits(a, p), f"{name}: {what}: kernel != plain"
+        assert _same_bits(a, b), f"{name}: {what}: two launches differ"
+
+    src, dst, w = args[:3]
+    q_args = (src, dst, w, got[0], got[1], two_m)
+    before = dense_modularity_cuda.launches
+    q, launched = _dense_launches(lambda: dense_modularity_cuda(*q_args))
+    assert dense_modularity_cuda.launches == before + 1
+    assert launched == {"dense_modularity_kernel": 1}, launched
+    assert _same_bits(q, realized_modularity(*q_args))
+    assert _same_bits(q, dense_modularity_cuda(*q_args))
 
 
 # ---------------------------------------------------------------------------
