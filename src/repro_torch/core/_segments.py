@@ -99,3 +99,32 @@ def count_communities(C: torch.Tensor, node_valid: torch.Tensor,
     """Number of distinct community ids among valid vertices."""
     _, n = renumber(C, node_valid, nv)
     return n
+
+
+def renumber_tile(labels: torch.Tensor, node_valid: torch.Tensor,
+                  graphs: int):
+    """:func:`renumber` of each graph of a tile at once: ``labels`` and
+    ``node_valid`` ``[b * nv]`` in a ``GraphUnion``'s slots (labels in
+    their own graph's slots).  One presence bitmap and one exclusive
+    prefix sum over the union; each graph's ranks are the union's less
+    the rank at its first slot, so ids stay graph-major.  Returns
+    ``(dense int32 [b * nv] in union slots, n_communities int32 [b])``:
+    graph ``g``'s valid communities get ``g * nv + [0, n_g)``, and its
+    ghost group (left out of ``n_g``) ``g * nv + n_g``."""
+    n = labels.shape[0]
+    nv = n // graphs
+    slot = torch.arange(n, dtype=torch.int32, device=labels.device)
+    base = slot - torch.remainder(slot, nv)
+    lab = torch.where(node_valid, labels, base + (nv - 1)).to(torch.int32)
+    present = torch.zeros(n, dtype=torch.int32, device=labels.device)
+    present[lab] = 1
+    rank = (torch.cumsum(present, 0) - present).to(torch.int32)
+    first = rank[::nv]
+    dense = rank[lab] - torch.repeat_interleave(first, nv) + base
+    return dense, rank[nv - 1::nv] - first
+
+
+def count_communities_tile(C: torch.Tensor, node_valid: torch.Tensor,
+                           graphs: int) -> torch.Tensor:
+    """int32 ``[b]``: :func:`count_communities` of each graph of a tile."""
+    return renumber_tile(C, node_valid, graphs)[1]

@@ -30,6 +30,11 @@ folds in another order.
 :func:`_half_sweep_scatter` (separate run sums and run fields, then
 reductions by run vertex), the paired baseline of the fused one: the same
 bits, on the same kernel.
+
+:func:`local_move_tile` is the dense loop of the batched engine's tile:
+the graphs of one bucket laid out as one union of ``b * nv`` slots, swept
+in lockstep (the dense half-sweep and realized modularity with a graph
+axis), every convergence decision kept per graph.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch
 
 from repro_torch.core import _segments as seg
 from repro_torch.distributed import collectives as col
+from repro_torch.graph.container import union_ghosts
 from repro_torch.kernels import ops
 from repro_torch.kernels.dense_sweep import (dense_half_sweep_cuda,
                                              dense_modularity_cuda, edge_rows)
@@ -301,7 +307,8 @@ def _half_sweep_scatter(src, dst, w, C, K, Sigma, two_m, movable,
 
 
 def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
-                      target_ok=None, anchored=True, rows=None, gain=True):
+                      target_ok=None, anchored=True, rows=None, gain=True,
+                      graphs=1):
     """Dense twin of :func:`_half_sweep` for small ``nv``: the same
     contract and the same bits, with every decision taken on ``[nv, nv]``
     community matrices (row i: vertex i; column c: community c).
@@ -322,6 +329,14 @@ def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
     any order.  The reference's ``owned`` and ``axis`` (its sharded
     harness) have no counterpart here.
 
+    ``graphs = b > 1`` sweeps a tile: the ``b * nv`` slots of a
+    :class:`~repro_torch.graph.container.GraphUnion`, community ids in
+    their own graph's slots, ``two_m`` float32 ``[b]`` (0-dim for one
+    graph), each graph's ghost at its local ``nv - 1``.  Every row reads
+    its own graph's 2m, Sigma and columns, so each graph's outputs are the
+    bits of its half-sweep alone (the vmapped sweep of the reference's
+    engine), and ``gain`` is ``[b]``.
+
     On the card the half-sweep is the kernel ``csrc/dense_sweep.cu``
     (:func:`repro_torch.kernels.dense_sweep.dense_half_sweep_cuda`), two
     launches in place of the dozens of :func:`_half_sweep_dense_plain`, its
@@ -332,17 +347,27 @@ def _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
     """
     if not C.is_cuda:
         return _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m,
-                                       movable, target_ok, anchored, gain)
+                                       movable, target_ok, anchored, gain,
+                                       graphs)
     if rows is None:
         rows = edge_rows(src, C.shape[0])
     C_new, Sigma_new, move, want, best = dense_half_sweep_cuda(
-        rows, dst, w, C, K, Sigma, two_m, movable, target_ok, anchored)
+        rows, dst, w, C, K, Sigma, two_m, movable, target_ok, anchored,
+        graphs=graphs)
     return C_new, Sigma_new, move, \
-        torch.sum(torch.where(move, best, 0.0)) if gain else None, want
+        _gain(move, best, graphs) if gain else None, want
+
+
+def _gain(move, best, graphs):
+    """The moved rows' summed best scores: a 0-dim sum for one graph,
+    ``[b]`` for a tile (neither is read by a decision)."""
+    moved = torch.where(move, best, 0.0)
+    return torch.sum(moved) if graphs == 1 else moved.view(graphs, -1).sum(1)
 
 
 def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
-                            target_ok=None, anchored=True, gain=True):
+                            target_ok=None, anchored=True, gain=True,
+                            graphs=1):
     """The plain PyTorch version of :func:`_half_sweep_dense` (on any
     device; the CPU's route), with the ``[nv, nv]`` matrices' bits.
 
@@ -355,14 +380,23 @@ def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
     which is exact.  The row max and the min-id argmin are exact in any
     order (the values reduced pass ``W > 0``, so ``2m > 0`` and they are
     finite), so a scatter takes them.  ``gain`` sums the same ``[nv]``
-    vector."""
-    nv = C.shape[0]
-    ghost = nv - 1
+    vector.
+
+    For a tile (``graphs = b > 1``) the cells are ``(g * nv + i) * nv +
+    c`` with ``c`` the local column, so ``torch.unique``'s order is
+    graph-major with each graph's own order inside, and ``Sigma_new`` is
+    one in-order segment sum over the union's community ids."""
+    n = C.shape[0]
+    nv = n // graphs
+    ghost = nv - 1                  # each graph's ghost, by local id
     take = torch.index_select   # a 1-D gather, half the host time of x[idx]
 
     # --- pass A: true and anchored K_{i->c} per cell an edge reaches -----
     not_self = src != dst  # exclude self-loops from scan (paper Alg. 4)
-    cell, run = torch.unique(src.to(torch.int64) * nv + take(C, 0, dst),
+    cd = take(C, 0, dst)
+    if graphs > 1:
+        cd = torch.remainder(cd, nv)
+    cell, run = torch.unique(src.to(torch.int64) * nv + cd,
                              return_inverse=True)
     run, n_cells = run.to(torch.int32), cell.shape[0]
     W_all = ops.segment_sum_inorder(torch.where(not_self, w, 0.0), run,
@@ -375,11 +409,17 @@ def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
         W_frz = W_all
     i = torch.div(cell, nv, rounding_mode="floor")
     c = cell - i * nv
+    if graphs > 1:      # local row, and the column's union community id
+        il = torch.remainder(i, nv)
+        cg = i - il + c
+        two_m = take(two_m, 0, torch.div(i, nv, rounding_mode="floor"))
+    else:
+        il, cg = i, c
     Ci = take(C, 0, i)
 
     # --- K_{i->d}: true weight to own community (excluding self) ---------
-    own = c == Ci
-    K_own = torch.zeros(nv, dtype=W_all.dtype, device=W_all.device
+    own = cg == Ci
+    K_own = torch.zeros(n, dtype=W_all.dtype, device=W_all.device
                         ).index_add_(0, i, torch.where(own, W_all, 0.0))
 
     # --- delta-modularity per candidate cell (paper Eq. 2) ---------------
@@ -388,14 +428,14 @@ def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
     Ki = take(K, 0, i)
     d = W_all - take(K_own, 0, i)
     dq = (d + d) / two_m - (Ki + Ki) * (
-        Ki + take(Sigma, 0, c) - take(Sigma, 0, Ci)) / (two_m * two_m)
-    geom = (torch.maximum(i, c) < ghost) & ~own
+        Ki + take(Sigma, 0, cg) - take(Sigma, 0, Ci)) / (two_m * two_m)
+    geom = (torch.maximum(il, c) < ghost) & ~own
     cand = geom & (W_frz > 0.0) & take(movable, 0, i)
     if target_ok is not None:
-        cand = cand & take(target_ok, 0, c)
+        cand = cand & take(target_ok, 0, cg)
 
     def row_max(v):
-        return torch.full((nv,), NEG, dtype=v.dtype, device=v.device
+        return torch.full((n,), NEG, dtype=v.dtype, device=v.device
                           ).scatter_reduce_(0, i, v, "amax")
 
     want = row_max(torch.where(geom & (W_all > 0.0), dq, NEG)) > 0.0
@@ -406,18 +446,22 @@ def _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m, movable,
     # does not move is never read
     dq_cand = torch.where(cand, dq, NEG)
     best = row_max(dq_cand)
-    c_star = torch.full((nv,), seg.INT_MAX, dtype=torch.int64,
+    c_star = torch.full((n,), seg.INT_MAX, dtype=torch.int64,
                         device=C.device).scatter_reduce_(
-        0, i, torch.where(dq_cand >= take(best, 0, i), c, seg.INT_MAX),
+        0, i, torch.where(dq_cand >= take(best, 0, i), cg, seg.INT_MAX),
         "amin")
     move = best > 0.0
     C_new = torch.where(move, c_star, C).to(C.dtype)
-    C_new[ghost] = ghost
+    if graphs > 1:
+        ghosts = union_ghosts(graphs, nv, C.device)
+        C_new[ghosts.long()] = ghosts
+    else:
+        C_new[ghost] = ghost
 
     # --- exact Sigma recompute: identical to the sort path ----------------
-    Sigma_new = ops.segment_sum_inorder(K, C_new, nv)
-    gain = torch.sum(torch.where(move, best, 0.0)) if gain else None
-    return C_new, Sigma_new, move, gain, want
+    Sigma_new = ops.segment_sum_inorder(K, C_new, n)
+    return C_new, Sigma_new, move, _gain(move, best, graphs) if gain \
+        else None, want
 
 
 def dense_adjacency(src, dst, nv: int) -> torch.Tensor:
@@ -605,3 +649,145 @@ def local_move(src, dst, w, C0, K, Sigma0, two_m, *, tau, max_iters: int = 20,
         scan=scan, adj=adj, owned=owned, group=group, gidx=gidx,
         m_total=m_total, seg_impl=seg_impl)
     return C, Sigma, li
+
+
+# --- the tile: b graphs of one bucket in lockstep ----------------------------
+
+def tile_adjacency(src, dst, graphs: int, nv: int) -> torch.Tensor:
+    """bool ``[b, nv, nv]``: each graph's :func:`dense_adjacency`, from a
+    union's edges (``src``, ``dst`` in ``g * nv + i`` slots)."""
+    adj = torch.zeros((graphs, nv, nv), dtype=torch.bool, device=src.device)
+    adj.view(graphs * nv, nv)[src.long(), torch.remainder(dst, nv).long()] \
+        = True
+    return adj
+
+
+def wake_neighbours_tile(moved, adj) -> torch.Tensor:
+    """bool ``[b * nv]``: :func:`wake_neighbours` of each graph of a tile,
+    a column ``any`` of its own ``[nv, nv]`` adjacency (exact)."""
+    b, nv, _ = adj.shape
+    return torch.any(adj & moved.view(b, nv)[:, :, None], dim=1).view(b * nv)
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_parity_masks(nv: int, n: int, graphs: int, device: torch.device):
+    """:func:`_parity_masks` of the local ids, repeated for each graph of
+    a tile: bool ``[n, b * nv]`` each (a tile's parity is each graph's
+    own)."""
+    return tuple(m.repeat(1, graphs) for m in _parity_masks(nv, n, device))
+
+
+def realized_modularity_tile(src, dst, w, C, Sigma, two_m, counts):
+    """:func:`realized_modularity` of each graph of a tile, float32
+    ``[b]``: the two flat sums by ``ops.sum_inorder_per_graph``, each
+    graph's the bits of its own (``counts``: its live edges, host ints)."""
+    b = len(counts)
+    nv = C.shape[0] // b
+    w_in = torch.where(torch.index_select(C, 0, src)
+                       == torch.index_select(C, 0, dst), w, 0.0)
+    internal = ops.sum_inorder_per_graph(w_in, counts)
+    sig2 = ops.sum_inorder_per_graph(Sigma * Sigma, (nv,) * b)
+    return internal / two_m - sig2 / (two_m * two_m)
+
+
+def local_move_tile(src, dst, w, C0, K, Sigma0, two_m, *, counts, tau,
+                    max_iters: int = 20, sync: str = "handshake",
+                    prune: bool = True, adj=None):
+    """:func:`local_move` (dense scan) of the ``b = len(counts)`` graphs of
+    a tile at once: one set of launches and one host read a sweep.
+    Returns ``(C, Sigma, l_i, sweeps)``, ``l_i`` and ``sweeps`` int64
+    numpy ``[b]``.
+
+    The edges are a :class:`~repro_torch.graph.container.GraphUnion`'s
+    (``counts`` its per-graph live edges), ``C0``/``K``/``Sigma0`` are
+    ``[b * nv]`` in its slots, ``two_m`` float32 ``[b]``, ``adj`` the
+    :func:`tile_adjacency` (built here when not given).  Every graph
+    starts at sweep 0, so all share the sweep index and its parity roll
+    (by local id).  Each keeps its own ``dQ_iter``, ``dQ_prev``, productive
+    count, best ``C``/``Sigma``/``Q``, awake set and convergence: once its
+    loop test fails it neither moves (its rows are not movable) nor
+    changes state, and its result is the state at its own convergence, as
+    a vmapped ``while_loop`` selects it.  So each graph's outputs are the
+    bits of :func:`local_move` on it alone.  The sweep's gains come to the
+    host in one ``[b]`` copy."""
+    if sync not in SYNC_PHASES:
+        raise ValueError(f"unknown sync mode {sync!r}")
+    b = len(counts)
+    n = C0.shape[0]
+    nv = n // b
+    dev = C0.device
+    tau = np.float32(tau)
+    if adj is None:
+        adj = tile_adjacency(src, dst, b, nv)
+    masks = _tile_parity_masks(nv, max_iters, b, dev)
+    kw = dict(gain=False, graphs=b)
+    if dev.type == "cuda":
+        kw["rows"] = edge_rows(src, n)
+        eptr = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(counts)]).astype(np.int32)).to(dev)
+
+        def realized(C, Sigma):   # the same bits, in one launch
+            return dense_modularity_cuda(src, dst, w, C, Sigma, two_m,
+                                         edge_counts=counts, edge_ptr=eptr)
+    else:
+        def realized(C, Sigma):
+            return realized_modularity_tile(src, dst, w, C, Sigma, two_m,
+                                            counts)
+
+    C = C0.to(torch.int32).clone()
+    ghosts = union_ghosts(b, nv, dev)
+    C[ghosts.long()] = ghosts
+    Sigma = Sigma0
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    q_prev = realized(C, Sigma)
+    C_best, Sigma_best, q_best = C, Sigma, q_prev
+    dQ_iter = np.full(b, np.inf, np.float32)
+    dQ_prev = dQ_iter.copy()
+    n_prod = np.zeros(b, np.int64)
+    sweeps = np.zeros(b, np.int64)
+    running = np.full(b, max_iters > 0)
+    run_g = run_v = None            # None: every graph still sweeps
+    it = 0
+    while running.any():
+        par = (masks[0][it], masks[1][it])
+        moved_any = None
+        for ph, tp in SYNC_PHASES[sync]:
+            movable = active if ph is None else active & par[ph]
+            if run_v is not None:
+                movable = movable & run_v
+            target_ok = None if tp is None else par[tp]
+            C, Sigma, moved, _, want = _half_sweep_dense(
+                src, dst, w, C, K, Sigma, two_m, movable,
+                target_ok=target_ok, anchored=ph is not None, **kw)
+            moved_any = moved if moved_any is None else moved_any | moved
+        q_now = realized(C, Sigma)
+        if prune:
+            active = wake_neighbours_tile(moved_any, adj) | want
+        else:
+            active = torch.ones(n, dtype=torch.bool, device=dev)
+        better = q_now > q_best
+        if run_g is not None:
+            better = better & run_g
+        keep = better[:, None]
+        C_best = torch.where(keep, C.view(b, nv), C_best.view(b, nv)
+                             ).view(n)
+        Sigma_best = torch.where(keep, Sigma.view(b, nv),
+                                 Sigma_best.view(b, nv)).view(n)
+        q_max = torch.maximum(q_now, q_best)
+        q_best = q_max if run_g is None else torch.where(run_g, q_max,
+                                                          q_best)
+        gain = (q_now - q_prev).cpu().numpy()    # the sweep's one sync
+        q_prev = q_now
+        r = running
+        dQ_prev[r], dQ_iter[r] = dQ_iter[r], gain[r]
+        sweeps[r] += 1
+        n_prod[r] += gain[r] > tau
+        it += 1
+        running = r & ((it < 2) | (dQ_iter > tau) | (dQ_prev > tau)) & (
+            it < max_iters)
+        if not np.array_equal(running, r):
+            run_g = torch.from_numpy(running).to(dev)
+            run_v = run_g.repeat_interleave(nv)
+    # li keeps the paper's semantics: li == 1 <=> no productive iteration
+    li = np.maximum(np.minimum(n_prod + 1, sweeps), 1)
+    return C_best, Sigma_best, li, sweeps

@@ -30,7 +30,9 @@ bit.
 
 :func:`louvain_staged` is the reference's Figure-5 entry point: the same loop
 with wall seconds per phase and per pass, and the reference's host
-arithmetic in float64.
+arithmetic in float64.  :func:`louvain_tile` is the pass loop of the
+batched engine's tile, for several graphs of one bucket at once (the
+dense scan, ``split='sp-pj'``).
 """
 from __future__ import annotations
 
@@ -41,12 +43,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import _segments as seg
-from repro_torch.core.aggregate import aggregate
-from repro_torch.core.local_move import dense_adjacency, local_move
-from repro_torch.core.split import split_labels
+from repro_torch.core.aggregate import aggregate, aggregate_union
+from repro_torch.core.local_move import (dense_adjacency, local_move,
+                                         local_move_tile, tile_adjacency)
+from repro_torch.core.split import split_labels, split_labels_tile
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as col
-from repro_torch.graph.container import Graph, strip_padding
+from repro_torch.graph.container import Graph, strip_padding, union_of
 from repro_torch.kernels import ops
 
 SPLITS = ("none", "sp-lp", "sp-lpp", "sp-pj", "sl-lp", "sl-lpp", "sl-pj",
@@ -312,3 +315,100 @@ def louvain_staged(g: Graph, cfg: LouvainConfig | None = None, *,
                         _Clock(phase, g.device), pass_seconds)
     stats.update(phase_seconds=phase, pass_seconds=pass_seconds)
     return C, stats
+
+
+def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig()):
+    """The pass loop of :func:`louvain_impl` (``scan='dense'``,
+    ``split='sp-pj'``) for the ``b`` graphs of a :func:`stack_graphs`
+    result at once, the batched engine's tile.  Returns ``(C int32 [b,
+    nv], stats, union)``: each graph's top-level labels and stats, the
+    bits of ``louvain_impl`` on it alone, and the
+    :class:`~repro_torch.graph.container.GraphUnion` of its live edges
+    (the detector and the modularity run on it).
+
+    The graphs still in the loop form one union a pass: one ``K``, one
+    :func:`~repro_torch.core.local_move.local_move_tile`, one tile split,
+    one renumber and one aggregation for all.  Each graph keeps its own
+    ``li``, community count, ``n_cur``, float32 shrink test and stats; all
+    start together, so they share the pass index and ``tau``.  A graph
+    whose loop is done (``li <= 1`` or a low shrink) leaves the union at
+    the aggregation, its labels final.  Each pass reads the community
+    counts and split moves of all its graphs in one host copy."""
+    _check_split(cfg.split)
+    if cfg.split != "sp-pj":
+        raise ValueError("the tile runs split='sp-pj' only, got "
+                         f"{cfg.split!r}")
+    b, nv, dev = stacked.src.shape[0], stacked.nv, stacked.device
+    union = union_of(stacked)
+    # 2m over each graph's padded edges, as Graph.total_weight_2m
+    two_m = ops.sum_inorder_per_graph(stacked.w.reshape(-1),
+                                      (stacked.m_cap,) * b)
+    n_nodes = stacked.n_nodes.cpu().numpy().astype(np.int64)
+    local = torch.arange(nv, dtype=torch.int32, device=dev)
+    Ctop = local.repeat(b, 1)
+    esrc, edst, ew, counts = union.src, union.dst, union.w, union.counts
+    pos = np.arange(b)              # the graphs in the union, in order
+    n_cur = n_nodes.copy()
+    tau = np.float32(cfg.tolerance)
+    drop = np.float32(cfg.tolerance_drop)
+    agg = np.float32(cfg.aggregation_tolerance)
+    passes, li_last, li_total, split_moved = (np.zeros(b, np.int64)
+                                              for _ in range(4))
+    n_pass = 0
+    while pos.size and n_pass < cfg.max_passes:
+        a = pos.size
+        pos_t = torch.from_numpy(pos).to(dev)
+        ids = torch.arange(a * nv, dtype=torch.int32, device=dev)
+        base = ids - torch.remainder(ids, nv)
+        node_valid = (local[None, :] < torch.from_numpy(n_cur[pos]).to(dev)[
+            :, None]).view(a * nv)
+        K = ops.segreduce_sorted(ew, esrc, a * nv, op="sum")
+        adj = tile_adjacency(esrc, edst, a, nv)
+        C, _, li, _ = local_move_tile(
+            esrc, edst, ew, ids, K, K, two_m[pos_t], counts=counts, tau=tau,
+            max_iters=cfg.max_iters, sync=cfg.sync, prune=cfg.prune, adj=adj)
+        labels = split_labels_tile((C - base).view(a, nv), adj, mode="pj",
+                                   max_iters=cfg.split_max_iters
+                                   ).view(a * nv) + base
+        C_dense, n_comms = seg.renumber_tile(labels, node_valid, a)
+        moved = torch.sum(((labels != C) & node_valid).view(a, nv), dim=1)
+        n_comms, moved = torch.stack([n_comms.to(torch.int64), moved]
+                                     ).cpu().numpy()
+        Ctop[pos_t] = torch.gather(C_dense.view(a, nv), 1,
+                                   Ctop[pos_t].long()) - base.view(a, nv)
+        n_pass += 1
+        passes[pos] += 1
+        li_last[pos] = li
+        li_total[pos] += li
+        split_moved[pos] += moved
+        low_shrink = n_comms.astype(np.float32) > agg * n_cur[pos].astype(
+            np.float32)
+        cont = ~((li <= 1) | low_shrink)
+        if not cont.any() or n_pass == cfg.max_passes:
+            break
+        # the reference freezes a done graph; here it leaves the union
+        keep = None if cont.all() else torch.from_numpy(cont).to(dev)
+        esrc, edst, ew, counts = aggregate_union(esrc, edst, ew, C_dense,
+                                                 nv, keep)
+        if keep is not None:     # close the gaps the done graphs leave
+            shift = torch.from_numpy(
+                ((np.arange(a) - np.cumsum(cont) + 1) * nv).astype(np.int32)
+            ).to(dev)
+            esrc = esrc - shift[torch.div(esrc, nv, rounding_mode="floor")
+                                .long()]
+            edst = edst - shift[torch.div(edst, nv, rounding_mode="floor")
+                                .long()]
+            counts = counts[cont]
+        counts = tuple(int(x) for x in counts)
+        n_cur[pos[cont]] = n_comms[cont]
+        pos = pos[cont]
+        tau = tau / drop
+
+    full = torch.arange(b * nv, dtype=torch.int32, device=dev)
+    top = Ctop.view(b * nv) + (full - torch.remainder(full, nv))
+    node_mask = (local[None, :] < stacked.n_nodes[:, None]).view(b * nv)
+    n_final = seg.count_communities_tile(top, node_mask, b).tolist()
+    stats = [dict(passes=int(passes[g]), li_last=int(li_last[g]),
+                  li_total=int(li_total[g]), split_moved=int(split_moved[g]),
+                  n_communities=int(n_final[g])) for g in range(b)]
+    return Ctop, stats, union

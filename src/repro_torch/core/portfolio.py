@@ -15,6 +15,10 @@ One dispatch over the tiers of ``DetectOptions.algorithm``, each with the
                    split of what refinement leaves unconnected, which the
                    reference omits (ROADMAP C.7).
 
+:func:`run_detection_tile` is :func:`run_detection` for several graphs
+of one bucket at once, the batched engine's tile (the standard tier,
+``split='sp-pj'``, the dense scan; :func:`tile_route`).
+
 Stats are the same five Python ints for every tier (passes / li_last /
 li_total / split_moved / n_communities); the sharded route adds
 ``n_shards``, ``m_shard`` and ``ghost_vertices``.
@@ -32,12 +36,15 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import torch
+
 from repro_torch.core import _segments as seg
 from repro_torch.core.detect import disconnected_communities
-from repro_torch.core.louvain import LouvainConfig, _Clock, louvain_impl
+from repro_torch.core.louvain import (LouvainConfig, _Clock, louvain_impl,
+                                      louvain_tile)
 from repro_torch.core.lpa import lpa_run
 from repro_torch.core.modularity import modularity
-from repro_torch.graph.container import strip_padding
+from repro_torch.graph.container import stack_graphs, strip_padding
 
 ALGORITHMS = ("fast", "standard", "max-quality")
 
@@ -205,3 +212,52 @@ def run_detection(graph, options, *, phase_seconds=None, telemetry=None):
         contract=contract_for(options.algorithm),
         fraction=float(det["fraction"]),
     )
+
+
+def tile_route(options, nv: int, m_cap: int, device_type: str) -> bool:
+    """Whether a batch of this shape and these options takes the engine's
+    tile (:func:`run_detection_tile`): the standard tier with
+    ``split='sp-pj'`` on the dense scan, without a mesh.  The other tiers,
+    splits and the sortscan run one graph at a time
+    (:func:`run_detection`)."""
+    return (options.algorithm == "standard" and options.mesh is None
+            and options.louvain.split == "sp-pj"
+            and options.resolved_scan(nv, m_cap,
+                                      device_type=device_type) == "dense")
+
+
+def run_detection_tile(graphs, options):
+    """:func:`run_detection` of several same-capacity graphs at once, the
+    batched engine's tile (the reference's vmapped ``louvain_impl`` +
+    detector + modularity): one :class:`~repro_torch.core.api.Detection`
+    a graph, each the bits of ``run_detection`` on it alone.
+
+    Only for what :func:`tile_route` accepts (raises otherwise): the pass
+    loop is :func:`~repro_torch.core.louvain.louvain_tile`, then the
+    detector and the modularity run once on the union of the graphs' live
+    edges, with one host copy for their counts and values."""
+    from repro_torch.core.api import Detection
+    from repro_torch.core.detect import disconnected_communities_tile
+    from repro_torch.core.modularity import modularity_tile
+
+    stacked = stack_graphs(graphs)
+    if not tile_route(options, stacked.nv, stacked.m_cap,
+                      stacked.device.type):
+        raise ValueError("the tile runs the standard tier with "
+                         "split='sp-pj' on the dense scan, without a mesh")
+    C, stats, u = louvain_tile(stacked, options.louvain)
+    b, nv = u.b, u.nv
+    slot = torch.arange(b * nv, dtype=torch.int32, device=C.device)
+    top = C.view(b * nv) + (slot - torch.remainder(slot, nv))
+    node_valid = (torch.arange(nv, device=C.device)[None, :]
+                  < stacked.n_nodes[:, None]).view(b * nv)
+    det = disconnected_communities_tile(u.src, u.dst, u.w, top, node_valid,
+                                        b)
+    q = modularity_tile(u.src, u.dst, u.w, top, u.counts)
+    n_disc = det["n_disconnected"].cpu().tolist()
+    frac, q = torch.stack([det["fraction"], q]).cpu().tolist()
+    contract = contract_for(options.algorithm)
+    return [Detection(labels=C[g], n_communities=stats[g]["n_communities"],
+                      n_disconnected=n_disc[g], modularity=q[g],
+                      stats=stats[g], contract=contract, fraction=frac[g])
+            for g in range(b)]

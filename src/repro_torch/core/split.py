@@ -14,7 +14,8 @@ is a Python loop driven from the host, which reads one flag per round.
 
 ``impl='coo'`` reduces over the edges with the segment-reduce kernel;
 ``impl='dense'`` (the dense scan's) holds the same-community adjacency as a
-bool[nv, nv] matrix and takes a row min a round.
+bool[nv, nv] matrix and takes a row min a round; :func:`split_labels_tile`
+runs it for the graphs of the engine's tile at once, ``[b, nv, nv]``.
 """
 from __future__ import annotations
 
@@ -32,13 +33,14 @@ def _same_community_adjacency(src, dst, C, adj=None) -> torch.Tensor:
     """bool[nv, nv]: the dense impl's same-community adjacency between
     real vertices, masked from the caller's edge adjacency ``adj`` or
     assigned from the edges (``True`` only, no accumulation: exact in any
-    order)."""
-    nv = C.shape[0]
+    order).  With ``adj`` given, ``C [..., nv]`` and ``adj [..., nv, nv]``
+    may carry leading (graph) axes."""
+    nv = C.shape[-1]
     ghost = nv - 1
     ids = torch.arange(nv, dtype=torch.int32, device=C.device)
     if adj is not None:
-        return (adj & (C[:, None] == C[None, :]) & (ids[:, None] < ghost)
-                & (ids[None, :] < ghost))
+        return (adj & (C[..., :, None] == C[..., None, :])
+                & (ids[:, None] < ghost) & (ids[None, :] < ghost))
     same = (C[src] == C[dst]) & (src < ghost) & (dst < ghost)
     # edges outside a community land on (ghost, ghost), cleared after
     A_same = torch.zeros((nv, nv), dtype=torch.bool, device=C.device)
@@ -82,20 +84,17 @@ def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0,
     limit = max_iters if max_iters > 0 else nv
     if impl == "dense":
         # C is fixed for the whole fixpoint: the masked adjacency is too
-        A_same = _same_community_adjacency(src, dst, C, adj)
-    else:
-        same = (C[src] == C[dst]) & (src < ghost) & (dst < ghost)
+        return _dense_fixpoint(_same_community_adjacency(src, dst, C, adj),
+                               mode, limit)
+    same = (C[src] == C[dst]) & (src < ghost) & (dst < ghost)
     L = torch.arange(nv, dtype=torch.int32, device=C.device)
     active = torch.ones(nv, dtype=torch.bool, device=C.device)
     changed, it = True, 0
     while changed and it < limit:
         # candidate: min label over same-community neighbours, keyed by the
         # sorted src (the symmetric COO makes in- and out-neighbours equal)
-        if impl == "dense":
-            cand = torch.amin(torch.where(A_same, L[None, :], INT_MAX), dim=1)
-        else:
-            cand = col.pmin(ops.segreduce_sorted(
-                torch.where(same, L[dst], INT_MAX), src, nv, op="min"), group)
+        cand = col.pmin(ops.segreduce_sorted(
+            torch.where(same, L[dst], INT_MAX), src, nv, op="min"), group)
         L_new = torch.minimum(L, cand)
         if mode == "lpp":
             # pruned vertices are not recomputed this round (paper line 8)
@@ -106,12 +105,9 @@ def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0,
         moved = L_new != L
         if mode == "lpp":
             # wake same-community neighbours of changed vertices
-            if impl == "dense":
-                nbr = torch.any(A_same & moved[:, None], dim=0)
-            else:
-                nbr = col.pmax(ops.segreduce_sorted(
-                    (moved[dst] & same).to(torch.int32), src, nv,
-                    op="max"), group) > 0
+            nbr = col.pmax(ops.segreduce_sorted(
+                (moved[dst] & same).to(torch.int32), src, nv,
+                op="max"), group) > 0
             active = nbr | moved
         if group is None:
             changed = bool(moved.any())
@@ -121,3 +117,46 @@ def split_labels(src, dst, w, C, *, mode: str = "pj", max_iters: int = 0,
         L = L_new
         it += 1
     return L, it
+
+
+def _dense_fixpoint(A_same, mode: str, limit: int):
+    """The dense impl's rounds on ``A_same [..., nv, nv]``: ``(labels
+    int32 [..., nv], rounds)``, a row min a round.  Leading axes are
+    graphs that run their rounds together: a graph at its fixpoint maps
+    to itself (``L_new == L``), so the extra rounds of a tile's earlier
+    graphs change nothing, and the integer labels are each graph's own."""
+    nv = A_same.shape[-1]
+    L = torch.arange(nv, dtype=torch.int32, device=A_same.device).expand(
+        A_same.shape[:-1]).contiguous()
+    active = torch.ones_like(L, dtype=torch.bool)
+    changed, it = True, 0
+    while changed and it < limit:
+        cand = torch.amin(torch.where(A_same, L[..., None, :], INT_MAX),
+                          dim=-1)
+        L_new = torch.minimum(L, cand)
+        if mode == "lpp":
+            L_new = torch.where(active, L_new, L)
+        if mode == "pj":
+            L_new = torch.gather(L_new, -1, L_new.long())
+            L_new = torch.gather(L_new, -1, L_new.long())
+        moved = L_new != L
+        if mode == "lpp":
+            active = torch.any(A_same & moved[..., :, None], dim=-2) | moved
+        changed = bool(moved.any())
+        L = L_new
+        it += 1
+    return L, it
+
+
+def split_labels_tile(C, adj, *, mode: str = "pj", max_iters: int = 0):
+    """:func:`split_labels` with the dense impl for each graph of a tile:
+    ``C`` int32 ``[b, nv]`` (local ids), ``adj`` bool ``[b, nv, nv]``
+    (``core/local_move.py:tile_adjacency``).  Returns the local labels
+    ``[b, nv]``, each graph's :func:`split_labels` labels."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    nv = C.shape[-1]
+    limit = max_iters if max_iters > 0 else nv
+    L, _ = _dense_fixpoint(_same_community_adjacency(None, None, C, adj),
+                           mode, limit)
+    return L

@@ -11,6 +11,10 @@ Conventions, the same as the JAX package's:
   have length ``nv = n_cap + 1`` so gathers through padding stay in bounds.
 * Edges are sorted by ``(src, dst)``; the ghost sentinel sorts all padding
   to the tail.  Every sorted segment reduction keyed by ``src`` relies on it.
+
+:func:`stack_graphs` stacks same-capacity graphs as the reference's does,
+and :class:`GraphUnion` lays their live edges out as one graph of
+``b * nv`` vertex slots, the batched engine's tile.
 """
 from __future__ import annotations
 
@@ -122,6 +126,82 @@ def strip_padding(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     """
     m = int(torch.count_nonzero(src < ghost))
     return src[:m], dst[:m], w[:m]
+
+
+def stack_graphs(graphs) -> Graph:
+    """Stack same-capacity graphs into one batched Graph ([B, ...] leaves),
+    as the reference's ``stack_graphs``: capacities are shared, and the
+    array leaves gain a leading batch axis.  Raises ``ValueError`` on an
+    empty list or mixed capacities."""
+    graphs = list(graphs)
+    if not graphs:
+        raise ValueError("stack_graphs needs at least one graph")
+    n_cap, m_cap = graphs[0].n_cap, graphs[0].m_cap
+    for g in graphs[1:]:
+        if (g.n_cap, g.m_cap) != (n_cap, m_cap):
+            raise ValueError("stack_graphs requires homogeneous capacities")
+    return Graph(
+        src=torch.stack([g.src for g in graphs]),
+        dst=torch.stack([g.dst for g in graphs]),
+        w=torch.stack([g.w for g in graphs]),
+        n_nodes=torch.stack([g.n_nodes for g in graphs]),
+        n_cap=n_cap,
+        m_cap=m_cap,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphUnion:
+    """The live edges of ``b`` graphs of one width ``nv`` as one graph of
+    ``b * nv`` vertex slots, the engine's tile: graph ``g``'s vertex ``i``
+    is slot ``g * nv + i`` (:func:`vertex_offsets`), each graph keeps its
+    own ghost at local ``nv - 1`` (:func:`union_ghosts`), and its edges
+    keep their order in one graph-major run, so ``src`` stays sorted and a
+    segment never crosses graphs.
+
+    Attributes:
+      src, dst: int32 union vertex ids of the live edges.
+      w: float32 weights.
+      b: graphs; nv: each graph's node-array length (ghost included).
+      counts: each graph's live edges, on the host.
+    """
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    w: torch.Tensor
+    b: int
+    nv: int
+    counts: tuple
+
+    @property
+    def edge_offsets(self) -> np.ndarray:
+        """int64 ``[b + 1]``: graph ``g``'s edges are
+        ``[edge_offsets[g], edge_offsets[g + 1])``."""
+        return np.concatenate([[0], np.cumsum(self.counts, dtype=np.int64)])
+
+
+def vertex_offsets(b: int, nv: int, device) -> torch.Tensor:
+    """int32 ``[b]``: the first union slot of each graph, ``g * nv``."""
+    return torch.arange(b, dtype=torch.int32, device=device) * nv
+
+
+def union_ghosts(b: int, nv: int, device) -> torch.Tensor:
+    """int32 ``[b]``: each graph's ghost slot, ``g * nv + nv - 1``."""
+    return vertex_offsets(b, nv, device) + (nv - 1)
+
+
+def union_of(stacked: Graph) -> GraphUnion:
+    """The :class:`GraphUnion` of a :func:`stack_graphs` result: each
+    graph's live edges (``src`` below its ghost) shifted by ``g * nv``, in
+    graph-major order, with one host read for the counts."""
+    b, nv = stacked.src.shape[0], stacked.nv
+    live = stacked.src < stacked.ghost
+    off = vertex_offsets(b, nv, stacked.device)[:, None]
+    return GraphUnion(
+        src=torch.masked_select(stacked.src + off, live),
+        dst=torch.masked_select(stacked.dst + off, live),
+        w=torch.masked_select(stacked.w, live), b=b, nv=nv,
+        counts=tuple(live.sum(1).tolist()))
 
 
 def _sort_coo(src: np.ndarray, dst: np.ndarray, w: np.ndarray):

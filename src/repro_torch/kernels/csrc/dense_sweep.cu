@@ -52,6 +52,18 @@
 //   launcher), folds the upper levels and writes internal / 2m - sig2 /
 //   (2m * 2m).  Its chain: the leaf fold's 1,024 adds and the upper levels'.
 //
+// The graph axis (the batched engine's tile): every kernel takes graphs >= 1
+// graphs of nv vertex slots each, laid out as one union (graph g's vertex i
+// is slot g * nv + i, its community ids in its own slots, its ghost at its
+// local nv - 1).  dense_rows runs a warp a row over the union's graphs * nv
+// rows, each row reading its own graph's 2m and Sigma and folding onto its
+// local community columns; dense_sigma is a block a graph; the modularity
+// takes each graph's leaf chunks of both trees (a 2-D grid, a row a graph)
+// and a ticket a graph.  The fold order inside each graph is the one above,
+// so each graph's outputs are the bits of its launch alone.  graphs = 1
+// takes the rows and modularity kernels' instances compiled without the
+// graph axis (kTile false): the single-graph code.
+//
 // Every float result equals the plain version's bit for bit; the ±0 of best
 // and want never matters (both are read only by > 0 and >=).
 #include <cuda_runtime.h>
@@ -66,6 +78,9 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // --- dense_rows: a warp a vertex row ------------------------------------
 
+// kTile: rows of graphs > 1 (each its graph's 2m, base and ghost); else
+// one graph's, with its 2m read once
+template <bool kTile>
 __global__ void __launch_bounds__(kRowThreads)
 dense_rows(const int* __restrict__ order, const int* __restrict__ row_ptr,
            const int* __restrict__ dst, const float* __restrict__ w,
@@ -73,7 +88,8 @@ dense_rows(const int* __restrict__ order, const int* __restrict__ row_ptr,
            const float* __restrict__ Sigma, const float* __restrict__ two_m_p,
            const unsigned char* __restrict__ movable,
            const unsigned char* __restrict__ target_ok, int anchored, int nv,
-           int* __restrict__ C_new, unsigned char* __restrict__ move,
+           int graphs, int* __restrict__ C_new,
+           unsigned char* __restrict__ move,
            unsigned char* __restrict__ want, float* __restrict__ best_out,
            float* __restrict__ scratch) {
   extern __shared__ float smem[];
@@ -92,10 +108,15 @@ dense_rows(const int* __restrict__ order, const int* __restrict__ row_ptr,
   for (int c = lane; c < nv; c += 32) tag[c] = -1;
   __syncwarp();
 
-  const float two_m = *two_m_p;
-  const float two_m2 = __fmul_rn(two_m, two_m);
-  const int ghost = nv - 1;
-  for (int i = gwarp; i < nv; i += nwarps) {
+  const float two_m0 = *two_m_p;
+  const int rows = kTile ? nv * graphs : nv;
+  for (int i = gwarp; i < rows; i += nwarps) {
+    // row i of graph g: its own 2m, ghost and local community columns
+    const int g = kTile ? i / nv : 0;
+    const int base = g * nv;
+    const float two_m = kTile ? two_m_p[g] : two_m0;
+    const float two_m2 = __fmul_rn(two_m, two_m);
+    const int ghost = base + nv - 1;
     if (i == ghost) {            // no cell of the ghost row is scored
       if (lane == 0) {
         move[i] = 0;
@@ -121,7 +142,7 @@ dense_rows(const int* __restrict__ order, const int* __restrict__ row_ptr,
         const int d = dst[e];
         const float we = w[e];
         const bool not_self = d != i;
-        c = C[d];
+        c = C[d] - base;
         a = not_self ? we : 0.0f;
         f = anchored ? ((not_self && !movable[d]) ? we : 0.0f) : a;
       }
@@ -149,7 +170,7 @@ dense_rows(const int* __restrict__ order, const int* __restrict__ row_ptr,
     }
 
     const int ci = C[i];
-    const float k_own = tag[ci] == reached ? wa[ci] : 0.0f;
+    const float k_own = tag[ci - base] == reached ? wa[ci - base] : 0.0f;
     __syncwarp();                // before any tag turns to `scored`
 
     // pass 2: score each reached community once (paper Eq. 2)
@@ -162,9 +183,10 @@ dense_rows(const int* __restrict__ order, const int* __restrict__ row_ptr,
     int bc = INT_MAX;
     for (int k = e0 + lane; k < e1; k += 32) {
       const int c = C[dst[order[k]]];
-      if (atomicCAS(&tag[c], reached, scored) != reached) continue;
+      const int cl = c - base;
+      if (atomicCAS(&tag[cl], reached, scored) != reached) continue;
       if (c >= ghost || c == ci) continue;
-      const float W = wa[c];
+      const float W = wa[cl];
       // 2.0 * (W - K_own) / two_m - 2.0 * Ki * (Ki + Sigma_c - Sigma_d)
       //   / (two_m * two_m), one rounding an operation, as the plain version
       const float t = __fdiv_rn(__fmul_rn(2.0f, __fsub_rn(W, k_own)), two_m);
@@ -175,7 +197,7 @@ dense_rows(const int* __restrict__ order, const int* __restrict__ row_ptr,
         want_nan |= isnan(dq);
         want_pos |= dq > 0.0f;
       }
-      if (row_ok && wf[c] > 0.0f && (target_ok == nullptr || target_ok[c])) {
+      if (row_ok && wf[cl] > 0.0f && (target_ok == nullptr || target_ok[c])) {
         if (isnan(dq)) {
           best_nan = true;
         } else if (dq > bv || (dq == bv && c < bc)) {
@@ -220,6 +242,12 @@ template <bool kShared>
 __global__ void __launch_bounds__(kSigmaThreads)
 dense_sigma(const int* __restrict__ C_new, const float* __restrict__ K,
             int nv, float* __restrict__ Sigma_new, float* scratch) {
+  // block g: graph g's slots, its communities by local id
+  const int base = blockIdx.x * nv;
+  C_new += base;
+  K += base;
+  Sigma_new += base;
+  if (scratch != nullptr) scratch += 2 * static_cast<size_t>(nv) * blockIdx.x;
   // acc[c]: Sigma_new[c] so far; grp[i]: for the first vertex of each
   // community in its 32-vertex window, the window's lanes in that
   // community (0 for the others); cs, ks: C_new and K staged (in shared
@@ -235,7 +263,7 @@ dense_sigma(const int* __restrict__ C_new, const float* __restrict__ K,
   // every window's groups at once, a warp a window
   for (int i0 = warp * 32; i0 < nv; i0 += kSigmaThreads) {
     const int i = i0 + lane;
-    const int c = i < nv ? C_new[i] : -1;
+    const int c = i < nv ? C_new[i] - base : -1;
     const unsigned peers = __match_any_sync(kFull, c);
     if (i < nv) {
       acc[i] = 0.0f;
@@ -247,19 +275,20 @@ dense_sigma(const int* __restrict__ C_new, const float* __restrict__ K,
     }
   }
   __syncthreads();
-  const int* cs = shared ? cs_s : C_new;
   const float* ks = shared ? ks_s : K;
   // one warp walks the windows in increasing id: each group's first lane
   // folds its members in id order onto its community's accumulator, so
   // each Sigma folds its members in id order from +0.0; only the
   // accumulator's read, adds and write are on the chain
   if (warp == 0) {
+    // past MAX_NV the walk reads C_new where it is, less the graph's base
+    auto comm = [&](int j) { return shared ? cs_s[j] : C_new[j] - base; };
     unsigned peers = lane < nv ? grp[lane] : 0u;
-    int c = peers != 0 ? cs[lane] : -1;
+    int c = peers != 0 ? comm(lane) : -1;
     for (int i0 = 0; i0 < nv; i0 += 32) {
       const int j = i0 + 32 + lane;       // the next window, read ahead
       const unsigned next_peers = j < nv ? grp[j] : 0u;
-      const int next_c = next_peers != 0 ? cs[j] : -1;
+      const int next_c = next_peers != 0 ? comm(j) : -1;
       if (peers != 0) {
         float a = acc[c];
         for (unsigned p = peers; p != 0; p &= p - 1)
@@ -304,27 +333,47 @@ __device__ float fold_levels(float* buf, long long n) {
   return __ldcg(cur);
 }
 
+// Graph g is grid row blockIdx.y: its edges are [eptr[g], eptr[g + 1])
+// (all m when eptr is null, one graph), its Sigma the nv values from g * nv,
+// its leaf chunks of the masked weights blocks [0, n_int_g) of the row (the
+// row has room for n_int, the largest graph's; the blocks past its own
+// return at once and take no ticket), those of Sigma^2 the last n_sig
+// blocks.  scratch: the graphs' trees (2 * scratch_half floats each), then
+// a ticket a graph; q_out[g] its value.
+template <bool kTile>
 __global__ void __launch_bounds__(kQThreads)
 dense_modularity_kernel(const int* __restrict__ src,
                         const int* __restrict__ dst,
                         const float* __restrict__ w,
                         const int* __restrict__ C,
                         const float* __restrict__ Sigma,
-                        const float* __restrict__ two_m_p, long long m,
+                        const float* __restrict__ two_m_p,
+                        const int* __restrict__ eptr, long long m,
                         int nv, long long n_int, float* scratch,
-                        long long scratch_half, unsigned int* ticket,
+                        long long scratch_half, unsigned int* tickets,
                         float* q_out) {
   __shared__ __align__(16) float vals[kFlat];
   __shared__ bool s_last;
+  const int g = kTile ? blockIdx.y : 0;
+  const long long e_lo = kTile ? eptr[g] : 0;
+  const long long m_g = kTile ? eptr[g + 1] - e_lo : m;
+  const long long n_int_g = kTile ? max((m_g + kFlat - 1) / kFlat, 1LL)
+                                  : n_int;
   const bool internal = blockIdx.x < n_int;
+  if (kTile && internal && blockIdx.x >= n_int_g) return;   // past its own
   const long long chunk = internal ? blockIdx.x : blockIdx.x - n_int;
-  const long long n = internal ? m : nv;
+  const long long n = internal ? m_g : nv;
   const long long e0 = chunk * kFlat;
   const int len = static_cast<int>(max(0LL, min(n - e0, (long long)kFlat)));
+  const float* sig = Sigma + static_cast<long long>(g) * nv;
+  src += e_lo;
+  dst += e_lo;
+  w += e_lo;
+  scratch += 2 * scratch_half * g;
   for (int j = threadIdx.x; j < len; j += kQThreads) {
     const long long e = e0 + j;
     vals[j] = internal ? (C[src[e]] == C[dst[e]] ? w[e] : 0.0f)
-                       : __fmul_rn(Sigma[e], Sigma[e]);
+                       : __fmul_rn(sig[e], sig[e]);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -347,18 +396,19 @@ dense_modularity_kernel(const int* __restrict__ src,
     for (; j < len; ++j) acc = __fadd_rn(acc, vals[j]);
     (internal ? scratch : scratch + scratch_half)[chunk] = acc;
     __threadfence();
-    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    const long long n_sig = gridDim.x - n_int;
+    s_last = atomicAdd(&tickets[g], 1u) == n_int_g + n_sig - 1;
   }
   __syncthreads();
   if (!s_last) return;
   __threadfence();
   const long long n_sig = gridDim.x - n_int;
-  const float in_sum = fold_levels(scratch, n_int);
+  const float in_sum = fold_levels(scratch, n_int_g);
   const float sig2 = fold_levels(scratch + scratch_half, n_sig);
   if (threadIdx.x == 0) {
-    const float two_m = *two_m_p;
-    *q_out = __fsub_rn(__fdiv_rn(in_sum, two_m),
-                       __fdiv_rn(sig2, __fmul_rn(two_m, two_m)));
+    const float two_m = two_m_p[g];
+    q_out[g] = __fsub_rn(__fdiv_rn(in_sum, two_m),
+                         __fdiv_rn(sig2, __fmul_rn(two_m, two_m)));
   }
 }
 
@@ -371,7 +421,11 @@ int rows_smem_ready(size_t smem) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem <= 48 * 1024 || (dev < 64 && done[dev] >= smem)) return 0;
-  err = cudaFuncSetAttribute(dense_rows,
+  err = cudaFuncSetAttribute(dense_rows<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dense_rows<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -387,24 +441,30 @@ long long launched[3] = {};
 
 // The launch plans come from the wrapper (kernels/dense_sweep.py:
 // modularity_plan, sweep_plan), the one place that knows them.
-// scratch: 2 * scratch_half + 2 floats, scratch_half at least twice the
-// level-0 chunks of max(m, nv); the word after both trees is the launch's
-// ticket, zeroed here on the stream; q_out may be the last float; the grid
-// is n_int leaf chunks of the masked weights, then those of Sigma^2
+// scratch: graphs * (2 * scratch_half + 2) floats, scratch_half at least
+// twice the level-0 chunks of max(m, nv) of the largest graph: each graph's
+// two trees, then a ticket a graph (zeroed here on the stream), then q_out
+// may be the last graphs floats; a grid row a graph of blocks = n_int leaf
+// chunks of the masked weights (the largest graph's), then those of Sigma^2;
+// eptr: int32 [graphs + 1] edge offsets, or null for one graph of m edges
 extern "C" int dense_modularity(const int* src, const int* dst,
                                 const float* w, const int* C,
                                 const float* Sigma, const float* two_m,
-                                long long m, int nv, long long n_int,
-                                int blocks, float* scratch,
-                                long long scratch_half, float* q_out,
-                                void* stream) {
+                                const int* eptr, long long m, int nv,
+                                long long n_int, int blocks, int graphs,
+                                float* scratch, long long scratch_half,
+                                float* q_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* ticket = reinterpret_cast<unsigned int*>(scratch + 2 * scratch_half);
-  cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned int), s);
+  auto* tickets = reinterpret_cast<unsigned int*>(
+      scratch + 2 * scratch_half * graphs);
+  cudaError_t err =
+      cudaMemsetAsync(tickets, 0, sizeof(unsigned int) * graphs, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dense_modularity_kernel<<<blocks, kQThreads, 0, s>>>(
-      src, dst, w, C, Sigma, two_m, m, nv, n_int, scratch, scratch_half,
-      ticket, q_out);
+  auto kernel = eptr == nullptr ? dense_modularity_kernel<false>
+                                 : dense_modularity_kernel<true>;
+  kernel<<<dim3(blocks, graphs), kQThreads, 0, s>>>(
+      src, dst, w, C, Sigma, two_m, eptr, m, nv, n_int, scratch,
+      scratch_half, tickets, q_out);
   err = cudaGetLastError();
   if (err == cudaSuccess) ++launched[2];
   return static_cast<int>(err);
@@ -412,32 +472,34 @@ extern "C" int dense_modularity(const int* src, const int* dst,
 
 // scratch: nullptr where every warp's accumulators (rows_smem bytes a
 // block) and Sigma's walk (sigma_smem) lie in shared memory; else 3 * nv
-// floats for each of the grid's warps, then 2 * nv for Sigma's
-// accumulators and groups
+// floats for each of the grid's warps, then 2 * nv a graph for Sigma's
+// accumulators and groups; two_m: graphs floats
 extern "C" int dense_half_sweep(const int* order, const int* row_ptr,
                                 const int* dst, const float* w, const int* C,
                                 const float* K, const float* Sigma,
                                 const float* two_m,
                                 const unsigned char* movable,
                                 const unsigned char* target_ok, int anchored,
-                                int nv, int* C_new, unsigned char* move,
+                                int nv, int graphs, int* C_new,
+                                unsigned char* move,
                                 unsigned char* want, float* best,
                                 float* Sigma_new, float* scratch, int grid,
                                 int rows_smem, int sigma_smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int ret = rows_smem_ready(rows_smem);
   if (ret != 0) return ret;
-  dense_rows<<<grid, kRowThreads, rows_smem, s>>>(
+  auto rows = graphs > 1 ? dense_rows<true> : dense_rows<false>;
+  rows<<<grid, kRowThreads, rows_smem, s>>>(
       order, row_ptr, dst, w, C, K, Sigma, two_m, movable, target_ok,
-      anchored, nv, C_new, move, want, best, scratch);
+      anchored, nv, graphs, C_new, move, want, best, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++launched[0];
   if (scratch == nullptr) {
-    dense_sigma<true><<<1, kSigmaThreads, sigma_smem, s>>>(
+    dense_sigma<true><<<graphs, kSigmaThreads, sigma_smem, s>>>(
         C_new, K, nv, Sigma_new, nullptr);
   } else {
-    dense_sigma<false><<<1, kSigmaThreads, 0, s>>>(
+    dense_sigma<false><<<graphs, kSigmaThreads, 0, s>>>(
         C_new, K, nv, Sigma_new,
         scratch + 3 * static_cast<size_t>(nv) * grid * kWarps);
   }

@@ -30,6 +30,15 @@ global scratch, :data:`SCRATCH_WARPS` warps walking the vertex rows, so
 any ``nv`` the plain version takes runs on the card.  :func:`sweep_plan`
 and :func:`modularity_plan` are the launches' host-side plans.
 
+Both take a graph axis, the batched engine's tile (``graphs = b``): the
+``b * nv`` vertex slots of a ``graph.container.GraphUnion``, each graph's
+community ids in its own slots, its ghost at its local ``nv - 1``, and
+its own 2m.  The rows kernel runs the union's rows, each against its own
+graph's 2m, Sigma and local community columns; Sigma's kernel is a block
+a graph; the modularity takes each graph's leaf chunks and a ticket a
+graph, and writes ``[b]`` values.  Each graph's outputs are the bits of
+its launch alone, and ``graphs = 1`` is the single-graph launch.
+
 ``dense_half_sweep_cuda.launches`` and ``dense_modularity_cuda.launches``
 count calls that launch (plain ints; one a call, though a half-sweep
 launches two kernels); :func:`kernel_launches` counts the kernels
@@ -45,7 +54,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int, ctypes.c_int) + \
+_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 3 + \
     (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 WARPS = 4               # csrc kWarps: rows in flight a block
 MAX_NV = 3072           # WARPS x three [nv] rows of 4 bytes in shared
@@ -55,33 +64,36 @@ FLAT_CHUNK = 1024       # ops.FLAT_CHUNK: values one in-order fold takes
 
 
 @functools.lru_cache(maxsize=64)
-def sweep_plan(nv: int) -> dict:
-    """The half-sweep's launch plan for ``nv`` vertex slots (the kernels
-    take it as given): the rows kernel's grid, each kernel's dynamic
-    shared memory, the global scratch (floats, 0 while everything fits in
-    shared memory), and the bytes of the one output allocation."""
+def sweep_plan(nv: int, graphs: int = 1) -> dict:
+    """The half-sweep's launch plan for ``graphs`` graphs of ``nv`` vertex
+    slots (the kernels take it as given): the rows kernel's grid, each
+    kernel's dynamic shared memory, the global scratch (floats, 0 while
+    everything fits in shared memory), and the bytes of the one output
+    allocation."""
     shared = nv <= MAX_NV
-    grid = -(-nv // WARPS)                      # a warp a row
+    grid = -(-nv * graphs // WARPS)             # a warp a row
     if not shared:
         grid = min(grid, SCRATCH_WARPS // WARPS)  # warps walk the rows
     return dict(
         grid=grid, rows_smem=3 * 4 * nv * WARPS if shared else 0,
         sigma_smem=16 * nv if shared else 0,
-        scratch_floats=0 if shared else (3 * grid * WARPS + 2) * nv,
-        out_bytes=14 * nv)
+        scratch_floats=0 if shared else (3 * grid * WARPS + 2 * graphs) * nv,
+        out_bytes=14 * nv * graphs)
 
 
 @functools.lru_cache(maxsize=64)
-def modularity_plan(m: int, nv: int) -> dict:
-    """The modularity's launch plan: the leaf chunks of each tree (a block
-    each), and the scratch: ``half`` floats a tree (twice its level-0
-    chunks at least, room for two levels), then the launch's ticket (an
-    integer word the launcher zeroes on the stream) and the result."""
+def modularity_plan(m: int, nv: int, graphs: int = 1) -> dict:
+    """The modularity's launch plan for ``graphs`` graphs of at most ``m``
+    edges: the leaf chunks of each tree (a block each, in a grid row a
+    graph), and the scratch: ``half`` floats a tree of each graph (twice
+    its level-0 chunks at least, room for two levels), then a ticket a
+    graph (integer words the launcher zeroes on the stream) and the
+    ``graphs`` results."""
     n_int = max(-(-m // FLAT_CHUNK), 1)
     n_sig = max(-(-nv // FLAT_CHUNK), 1)
     half = 2 * max(n_int, n_sig)
     return dict(blocks=n_int + n_sig, n_int=n_int, n_sig=n_sig, half=half,
-                scratch_floats=2 * half + 2)
+                scratch_floats=(2 * half + 2) * graphs)
 
 
 def edge_rows(src: torch.Tensor, nv: int):
@@ -103,24 +115,29 @@ def _launch(fn, index: int, *args) -> int:
         return fn(*args, stream)
 
 
-def _card_index(tensors, two_m, what: str) -> int:
-    """The card all of ``tensors`` (contiguous) and the 0-dim float32
-    ``two_m`` lie on; raises otherwise."""
+def _card_index(tensors, two_m, what: str, graphs: int = 1) -> int:
+    """The card all of ``tensors`` (contiguous) and ``two_m`` lie on;
+    raises otherwise.  ``two_m``: float32 ``[graphs]`` (contiguous), or
+    0-dim for one graph."""
     index = tensors[0].get_device()
     if index < 0 or not all(t.get_device() == index and t.is_contiguous()
                             for t in tensors):
         raise ValueError(f"the {what} takes contiguous tensors on one CUDA "
                          "device")
     if not (isinstance(two_m, torch.Tensor) and two_m.get_device() == index
-            and two_m.dim() == 0 and two_m.dtype == torch.float32):
-        raise ValueError("two_m must be a 0-dim float32 tensor on the card")
+            and two_m.dtype == torch.float32
+            and ((graphs == 1 and two_m.dim() == 0)
+                 or (two_m.shape == (graphs,) and two_m.is_contiguous()))):
+        raise ValueError("two_m must be a float32 [graphs] tensor on the "
+                         "card (or 0-dim for one graph)")
     return index
 
 
 def sweep_outputs(nv: int, device):
-    """The half-sweep's five ``[nv]`` outputs, ``(C_new, Sigma_new, move,
-    want, best)``, as views of one allocation (one split and three dtype
-    views: fewer host operations than five allocations)."""
+    """The half-sweep's five ``[nv]`` outputs (``nv`` the slots of all its
+    graphs), ``(C_new, Sigma_new, move, want, best)``, as views of one
+    allocation (one split and three dtype views: fewer host operations
+    than five allocations)."""
     n4 = 4 * nv
     C_new, Sigma_new, best, move, want = torch.empty(
         14 * nv, dtype=torch.bool, device=device).split((n4, n4, n4, nv, nv))
@@ -129,31 +146,38 @@ def sweep_outputs(nv: int, device):
 
 
 def dense_half_sweep_cuda(rows, dst, w, C, K, Sigma, two_m, movable,
-                          target_ok=None, anchored=True):
+                          target_ok=None, anchored=True, *, graphs=1):
     """One dense half-sweep on the card: ``(C_new, Sigma_new, move, want,
-    best)``, each ``[nv]``, where ``best`` is a row's best candidate score
+    best)``, each ``[n]``, where ``best`` is a row's best candidate score
     (the plain version's ``gain`` is its sum over moved rows).  ``rows``
-    is :func:`edge_rows` of the edges' sources; ``two_m`` a 0-dim float32
-    tensor on the card (as the plain version divides by it); ``movable``
-    and ``target_ok`` bool ``[nv]``.  The five outputs are views of one
-    allocation.  Raises on anything the kernel does not take."""
+    is :func:`edge_rows` of the edges' sources; ``two_m`` a float32 tensor
+    on the card (as the plain version divides by it), 0-dim for one graph
+    or ``[graphs]``; ``movable`` and ``target_ok`` bool ``[n]``.  ``n`` is
+    ``graphs * nv``: a tile's slots (see the module docstring).  The five
+    outputs are views of one allocation.  Raises on anything the kernel
+    does not take."""
     order, row_ptr = rows
-    nv = C.shape[0]
+    n = C.shape[0]
     tensors = [C, order, row_ptr, dst, w, K, Sigma, movable]
     if target_ok is not None:
         tensors.append(target_ok)
-    index = _card_index(tensors, two_m, "dense sweep")
+    if graphs < 1 or n % graphs:
+        raise ValueError("the dense sweep takes graphs >= 1 of nv slots "
+                         "each")
+    nv = n // graphs
+    index = _card_index(tensors, two_m, "dense sweep", graphs)
     if (order.dtype, row_ptr.dtype, dst.dtype, C.dtype) != (torch.int32,) * 4 \
             or (w.dtype, K.dtype, Sigma.dtype) != (torch.float32,) * 3 \
             or movable.dtype != torch.bool \
             or (target_ok is not None and target_ok.dtype != torch.bool):
         raise TypeError("the dense sweep takes int32 ids, float32 weights "
                         "and bool masks")
-    if nv < 1 or row_ptr.shape[0] != nv + 1 or K.shape[0] != nv \
-            or Sigma.shape[0] != nv or movable.shape[0] != nv:
-        raise ValueError("the dense sweep takes nv >= 1 and [nv] vectors")
-    plan = sweep_plan(nv)
-    outs = C_new, Sigma_new, move, want, best = sweep_outputs(nv, C.device)
+    if nv < 1 or row_ptr.shape[0] != n + 1 or K.shape[0] != n \
+            or Sigma.shape[0] != n or movable.shape[0] != n \
+            or (target_ok is not None and target_ok.shape[0] != n):
+        raise ValueError("the dense sweep takes nv >= 1 and [n] vectors")
+    plan = sweep_plan(nv, graphs)
+    outs = C_new, Sigma_new, move, want, best = sweep_outputs(n, C.device)
     scratch = (torch.empty(plan["scratch_floats"], dtype=torch.float32,
                            device=C.device)
                if plan["scratch_floats"] else None)
@@ -162,8 +186,9 @@ def dense_half_sweep_cuda(rows, dst, w, C, K, Sigma, two_m, movable,
                   dst.data_ptr(), w.data_ptr(), C.data_ptr(), K.data_ptr(),
                   Sigma.data_ptr(), two_m.data_ptr(), movable.data_ptr(),
                   None if target_ok is None else target_ok.data_ptr(),
-                  int(anchored), nv, C_new.data_ptr(), move.data_ptr(),
-                  want.data_ptr(), best.data_ptr(), Sigma_new.data_ptr(),
+                  int(anchored), nv, graphs, C_new.data_ptr(),
+                  move.data_ptr(), want.data_ptr(), best.data_ptr(),
+                  Sigma_new.data_ptr(),
                   None if scratch is None else scratch.data_ptr(),
                   plan["grid"], plan["rows_smem"], plan["sigma_smem"])
     _build.check(err, "dense_half_sweep")
@@ -173,36 +198,53 @@ def dense_half_sweep_cuda(rows, dst, w, C, K, Sigma, two_m, movable,
 
 dense_half_sweep_cuda.launches = 0
 
-_Q_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong, ctypes.c_int,
+_Q_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_longlong, ctypes.c_int,
-                                    ctypes.c_void_p, ctypes.c_longlong,
-                                    ctypes.c_void_p, ctypes.c_void_p)
+                                    ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_longlong, ctypes.c_void_p,
+                                    ctypes.c_void_p)
 
 
-def dense_modularity_cuda(src, dst, w, C, Sigma, two_m) -> torch.Tensor:
+def dense_modularity_cuda(src, dst, w, C, Sigma, two_m, *, edge_counts=None,
+                          edge_ptr=None) -> torch.Tensor:
     """The sweep loop's realized modularity (``core/local_move.py:
     realized_modularity`` without a group, its plain version) in one
     launch: the two ``ops.sum_inorder`` trees, over the masked weights and
     over Sigma^2, and ``internal / 2m - sig2 / (2m * 2m)``, the same bits.
-    Returns a 0-dim float32 tensor on the card."""
-    index = _card_index((C, src, dst, w, Sigma), two_m, "dense modularity")
+    Returns a 0-dim float32 tensor on the card.
+
+    For a tile (``realized_modularity_tile``), ``edge_counts`` are its
+    graphs' live edges (host ints) and ``edge_ptr`` their int32 offsets
+    ``[graphs + 1]`` on the card; ``C``/``Sigma`` hold ``graphs * nv``
+    slots and ``two_m`` is ``[graphs]``; returns float32 ``[graphs]``,
+    each graph's value the bits of its launch alone."""
+    if edge_counts is None:
+        graphs, m, tensors = 1, src.shape[0], (C, src, dst, w, Sigma)
+    else:
+        graphs, m = len(edge_counts), max(edge_counts)
+        tensors = (C, src, dst, w, Sigma, edge_ptr)
+        if edge_ptr.dtype != torch.int32 or \
+                edge_ptr.shape[0] != graphs + 1:
+            raise ValueError("edge_ptr must be int32 [graphs + 1]")
+    index = _card_index(tensors, two_m, "dense modularity", graphs)
     if (src.dtype, dst.dtype, C.dtype) != (torch.int32,) * 3 \
             or (w.dtype, Sigma.dtype) != (torch.float32,) * 2:
         raise TypeError("the dense modularity takes int32 ids and float32 "
                         "weights")
-    m, nv = src.shape[0], C.shape[0]
-    plan = modularity_plan(m, nv)
+    nv = C.shape[0] // graphs
+    plan = modularity_plan(m, nv, graphs)
     scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
                           device=C.device)
-    q_ptr = scratch.data_ptr() + 4 * (plan["scratch_floats"] - 1)
+    q_ptr = scratch.data_ptr() + 4 * (plan["scratch_floats"] - graphs)
     err = _launch(_build.bind("dense_sweep", "dense_modularity", _Q_ARGS),
                   index, src.data_ptr(), dst.data_ptr(), w.data_ptr(),
-                  C.data_ptr(), Sigma.data_ptr(), two_m.data_ptr(), m, nv,
-                  plan["n_int"], plan["blocks"], scratch.data_ptr(),
-                  plan["half"], q_ptr)
+                  C.data_ptr(), Sigma.data_ptr(), two_m.data_ptr(),
+                  None if edge_counts is None else edge_ptr.data_ptr(), m,
+                  nv, plan["n_int"], plan["blocks"], graphs,
+                  scratch.data_ptr(), plan["half"], q_ptr)
     _build.check(err, "dense_modularity")
     dense_modularity_cuda.launches += 1
-    return scratch[-1]
+    return scratch[-1] if edge_counts is None else scratch[-graphs:]
 
 
 dense_modularity_cuda.launches = 0

@@ -21,6 +21,9 @@ within stated tolerances.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
@@ -96,6 +99,44 @@ def sum_inorder(x: torch.Tensor) -> torch.Tensor:
         x = segreduce_sorted(x, chunk, max(-(-m // FLAT_CHUNK), 1), op="sum")
         if x.shape[0] == 1:
             return x[0]
+
+
+@functools.lru_cache(maxsize=16)
+def _flat_levels(lengths: tuple, device: torch.device) -> tuple:
+    """The chunk keys of each level of :func:`sum_inorder_per_graph` for
+    pieces of these ``lengths``: ``((keys int32, n_chunks), ...)``, keyed
+    ``chunk_base[g] + (j - off[g]) // FLAT_CHUNK``.  Cached by lengths,
+    since a sweep loop sums pieces of the same lengths every sweep."""
+    n = np.asarray(lengths, np.int64)
+    levels = []
+    while True:
+        chunks = np.maximum(-(-n // FLAT_CHUNK), 1)
+        base = np.cumsum(chunks) - chunks
+        g = np.repeat(np.arange(n.shape[0]), n)
+        pos = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+        keys = (base[g] + pos // FLAT_CHUNK).astype(np.int32)
+        levels.append((torch.from_numpy(keys).to(device), int(chunks.sum())))
+        if (chunks == 1).all():
+            return tuple(levels)
+        n = chunks
+
+
+def sum_inorder_per_graph(x: torch.Tensor, lengths) -> torch.Tensor:
+    """:func:`sum_inorder` of each of the consecutive pieces of ``x`` whose
+    ``lengths`` (host ints, summing to ``x``'s length) are given: float32
+    ``[len(lengths)]``, each value the bits of :func:`sum_inorder` on its
+    piece alone.
+
+    Each level folds every piece's chunks of :data:`FLAT_CHUNK` values in
+    one :func:`segreduce_sorted`, piece after piece, so the chunks and
+    their folds are the lone sum's.  A piece that is down to one value
+    before the others is folded again as a chunk of one, ``+0.0 + v``,
+    which is ``v``: a fold from +0.0 never gives -0.0.  An empty piece
+    sums to +0.0, as :func:`sum_inorder` of an empty vector."""
+    for keys, n_chunks in _flat_levels(tuple(int(n) for n in lengths),
+                                       x.device):
+        x = segreduce_sorted(x, keys, n_chunks, op="sum")
+    return x
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:

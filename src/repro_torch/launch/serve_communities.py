@@ -92,9 +92,9 @@ landing in three buckets, plus warm edge updates):
 
 Every driver runs on ``--device`` (default ``cuda``; it raises when
 there is no card, and ``--device cpu`` runs on the CPU): each service,
-graph and mesh is built there.  The reference's ``--sub-batch`` has no
-counterpart (the port's engine pads no batch), so passing it is an
-argparse error.  Printed times are wall times of the run on that device.
+graph and mesh is built there.  ``--sub-batch`` is the engine's tile
+width, as in the reference (default: the auto width, 1 on the CPU and 8
+on CUDA).  Printed times are wall times of the run on that device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_communities --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve_communities --async --smoke
@@ -519,6 +519,7 @@ async def main_async(args):
     else:
         specs = tenant_specs(args.tenants, args.requests)
     config = ServiceConfig(
+        sub_batch=args.sub_batch,
         detect=DetectOptions(louvain=LouvainConfig()), batch_size=args.batch,
         max_delay_s=args.max_delay_ms / 1e3,
         max_pending_per_tenant=args.max_pending,
@@ -618,6 +619,7 @@ async def main_replay_async(args):
         pool_size=8 if args.smoke else 24,
     )
     config = ServiceConfig(
+        sub_batch=args.sub_batch,
         detect=DetectOptions(louvain=LouvainConfig()), batch_size=args.batch,
         max_delay_s=args.max_delay_ms / 1e3,
         max_pending_per_tenant=args.max_pending,
@@ -780,6 +782,7 @@ async def main_stream_async(args):
                                                   parse_prometheus)
 
     config = ServiceConfig(
+        sub_batch=args.sub_batch,
         detect=DetectOptions(louvain=LouvainConfig()), batch_size=4,
         max_delay_s=args.max_delay_ms / 1e3,
         update_batch_size=1,             # one window -> one snapshot
@@ -830,6 +833,7 @@ async def main_tiers_async(args):
     n_each = 6 if args.smoke else max(6, args.requests // 3)
     tiers = {"speed": "fast", "std": "standard", "quality": "max-quality"}
     config = ServiceConfig(
+        sub_batch=args.sub_batch,
         detect=DetectOptions(louvain=LouvainConfig()),
         batch_size=args.batch, max_delay_s=args.max_delay_ms / 1e3,
         tenant_tiers=tuple(tiers.items()),
@@ -1000,7 +1004,7 @@ def _sharded_run(args, mesh):
     cfg = LouvainConfig()
     engine = BatchedLouvainEngine(
         options=DetectOptions(louvain=cfg, mesh=mesh), telemetry=tel,
-        device=dev)
+        sub_batch=args.sub_batch, device=dev)
     graphs = [
         ("ring", ring_of_cliques(n_cliques=12, clique_size=6, device=dev)),
         ("sbm", sbm_graph(n_nodes=220, n_blocks=5, p_in=0.4, p_out=0.02,
@@ -1069,6 +1073,7 @@ def main_churn(args):
     n_rounds = 6 if args.smoke else args.rounds
     update_batch = args.update_batch or args.batch
     config = ServiceConfig(
+        sub_batch=args.sub_batch,
         detect=DetectOptions(louvain=LouvainConfig()), batch_size=args.batch,
         max_delay_s=args.max_delay_ms / 1e3,
         update_batch_size=update_batch,
@@ -1143,6 +1148,7 @@ def main_chaos(args):
 
     # -- phase 1: fault-free reference run ---------------------------------
     cfg = ServiceConfig(
+        sub_batch=args.sub_batch,
         detect=DetectOptions(louvain=LouvainConfig()),
         batch_size=args.batch, max_delay_s=args.max_delay_ms / 1e3)
     fe = ServiceFrontend(cfg, device=dev)
@@ -1167,6 +1173,7 @@ def main_chaos(args):
         "telemetry.sink": FaultSpec(p=0.5, count=3),
     }, seed=args.seed)
     cfg = ServiceConfig(
+        sub_batch=args.sub_batch,
         detect=DetectOptions(louvain=LouvainConfig()),
         batch_size=args.batch, max_delay_s=args.max_delay_ms / 1e3,
         telemetry_enabled=True,
@@ -1233,6 +1240,7 @@ def main_chaos(args):
     plan3 = FaultPlan(
         {"engine.detect": FaultSpec(p=1.0, count=thr, skip=1)}, seed=1)
     cfg3 = ServiceConfig(
+        sub_batch=args.sub_batch,
         detect=DetectOptions(louvain=LouvainConfig()), batch_size=1,
         max_delay_s=0.0, fault_plan=plan3,
         retry=RetryPolicy(max_attempts=1),
@@ -1276,6 +1284,7 @@ def main_chaos(args):
         plan4 = FaultPlan(
             {"checkpoint.io": FaultSpec(p=1.0, count=1, skip=1)}, seed=2)
         cfg4 = ServiceConfig(
+            sub_batch=args.sub_batch,
             detect=DetectOptions(louvain=LouvainConfig()), batch_size=4,
             fault_plan=plan4, autockpt_dir=ckdir, autockpt_period_s=999.0,
             autockpt_recover=False)
@@ -1305,6 +1314,7 @@ def main_chaos(args):
         fe4.telemetry.close()
 
         cfg5 = ServiceConfig(
+            sub_batch=args.sub_batch,
             detect=DetectOptions(louvain=LouvainConfig()), batch_size=4,
             autockpt_dir=ckdir, autockpt_period_s=999.0)
         fe5 = ServiceFrontend(cfg5, device=dev)
@@ -1415,6 +1425,9 @@ def main(argv=None):
     ap.add_argument("--update-frac", type=float, default=0.3)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--max-delay-ms", type=float, default=25.0)
+    ap.add_argument("--sub-batch", type=int, default=None,
+                    help="the engine's tile width (default: auto, 1 on "
+                         "the CPU and 8 on CUDA)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where every service, graph and mesh runs "
@@ -1461,7 +1474,8 @@ def main(argv=None):
 
     svc = CommunityService(
         LouvainConfig(), batch_size=args.batch,
-        max_delay_s=args.max_delay_ms / 1e3, device=args.device,
+        max_delay_s=args.max_delay_ms / 1e3, sub_batch=args.sub_batch,
+        device=args.device,
     )
     t0 = time.perf_counter()
     report = run_traffic(svc, n_requests=args.requests,

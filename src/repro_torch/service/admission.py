@@ -25,11 +25,10 @@ submits re-bucketed updates from its compute thread while the event loop
 collects batches.
 
 The port's ``ServiceConfig`` has the reference's fields, defaults and
-validation messages, less the reference's ``sub_batch`` (the engine is a
-loop over the batch, with no tile to size) and its deprecated flat
-detection keywords (``louvain``, ``dense_max_nv``, ``dense_small_nv``,
-``dense_min_density``, ``seg_impl``, ``seg_block_m``) and their read-back
-properties: passing any of them is Python's own ``TypeError``, and callers
+validation messages (``sub_batch``, the engine's tile width, included),
+less the reference's deprecated flat detection keywords (``louvain``,
+``dense_max_nv``, ``dense_small_nv``, ``dense_min_density``,
+``seg_impl``, ``seg_block_m``) and their read-back properties: passing any of them is Python's own ``TypeError``, and callers
 pass ``detect=DetectOptions(...)``.  Where the service runs is not a
 field: the front end takes a ``device`` keyword.
 """
@@ -73,6 +72,8 @@ class ServiceConfig:
       batch_size:  dispatch width per bucket batch.
       max_delay_s: tail-latency bound — a bucket flushes a partial batch
                    once its oldest request has waited this long.
+      sub_batch:   engine tile width; None = device-keyed auto (1 on the
+                   CPU, 8 on CUDA).
 
     Warm updates (edge weight-deltas AND vertex additions/removals — one
     :class:`repro_torch.core.dynamic.GraphUpdate` batch type):
@@ -141,6 +142,7 @@ class ServiceConfig:
     buckets: Tuple[Bucket, ...] = DEFAULT_BUCKETS
     batch_size: int = 32
     max_delay_s: float = 0.05
+    sub_batch: Optional[int] = None
     update_batch_size: int = 1
     update_max_delay_s: Optional[float] = None
     max_pending_per_tenant: int = 64

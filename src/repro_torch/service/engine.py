@@ -2,31 +2,55 @@
 dispatch per same-bucket, same-tier request batch, and the batched warm
 updates of the result store.
 
-The reference compiles ``jit(lax.map(vmap(...)))`` per bucket, so each
-graph keeps its own loop state inside one call.  The port's pass and sweep
-loops are host loops with one sync a sweep (``core/local_move.py``), so a
-batch here is a **loop over its graphs** (ROADMAP A.8, option (a)): each
-runs :func:`~repro_torch.core.portfolio.run_detection`, the body of
-``detect()``, one graph at a time on the engine's device.  The partitions
-are the sequential ones by construction (every result equals ``detect()``
-of the same graph, bit for bit), and a batch costs the per-graph time
-summed.  Results come back as numpy on the host, as the reference's do.
+The reference compiles ``jit(lax.map(vmap(...)))`` per bucket: a batch is
+laid out as ``[n_tiles, sub_batch]`` stacked graphs, and the ``sub_batch``
+graphs of a tile run each pass and each sweep in lockstep, every decision
+kept per graph.  The port's pass and sweep loops are host loops with one
+sync a sweep (``core/local_move.py``), and a batch takes one of two
+routes (``DispatchInfo.route``):
+
+* ``"tile"``, the reference's lane-parallel batch, for the standard tier
+  with ``split='sp-pj'`` on the dense scan (every default bucket on the
+  card) at ``sub_batch > 1``.  The batch is cut into tiles of at most
+  ``sub_batch`` graphs, and each tile runs
+  :func:`~repro_torch.core.portfolio.run_detection_tile`: the live edges
+  of its graphs as one union (``graph/container.py:GraphUnion``) and one
+  pass loop for all (``core/louvain.py:louvain_tile``), so a sweep is one
+  set of launches and one host read for the tile.  Each graph keeps its
+  own pass count, place on the ``tau`` ladder, sweep loop state (``dQ``,
+  productive sweeps, best labels, Sigma and Q, awake set) and
+  convergence: a graph that converges stops moving and keeps its state,
+  and a graph whose pass loop is done leaves the union at the next
+  aggregation.  A tile needs no fixed width, so the last one holds what
+  is left and no filler graph runs.  A tile of one graph is
+  ``run_detection`` of that graph.
+* ``"loop"``, for the fast and max-quality tiers, any other split, the
+  sortscan, ``sub_batch = 1`` and :meth:`BatchedLouvainEngine.update_batch`:
+  each graph runs :func:`~repro_torch.core.portfolio.run_detection` (or
+  ``warm_update``), the body of ``detect()``, one after another (ROADMAP
+  A.8 option (a); the next batched routes are queued there).
+
+Either way every result equals ``detect()`` of the same graph, bit for
+bit.  Results come back as numpy on the host, as the reference's do.
+``sub_batch`` (``None``: 1 on the CPU, 8 on CUDA, the reference's rule)
+sets the tile width; ``DispatchInfo.capacity`` is tiles x ``sub_batch``,
+and ``fill`` (the ``batch_fill_factor`` gauge) the batch's share of it.
 
 What the reference has and the port keeps in another form:
 
 * *The compile cache.*  No executable stands behind a key.  A key is
-  (bucket, tier, scan) for a detection and (bucket, "update", tau,
-  max_iters, tier, scan) for a warm update, recorded on its first
-  dispatch; ``compile_hit`` means "this key was dispatched before".  The
-  first dispatch loads the CUDA kernels and warms the caching allocator,
-  which is the port's compile.  :meth:`cache_keys`, :meth:`warm`,
+  (bucket, sub_batch, tier, scan) for a detection and (bucket, sub_batch,
+  "update", tau, max_iters, tier, scan) for a warm update, the
+  reference's less its tile count, ``seg_impl`` and ``block_m``, recorded
+  on its first dispatch; ``compile_hit`` means "this key was dispatched
+  before".  The first dispatch loads the CUDA kernels and warms the
+  caching allocator, which is the port's compile.  :meth:`cache_keys`,
+  :meth:`warm` (one full tile of filler graphs a new key),
   :meth:`warm_updates`, the ``engine_compile`` counter and
   ``n_compile_hits``/``n_compile_misses`` keep that meaning.
 * *No padding.*  The reference pads a batch to a power-of-two tile count
-  of ``sub_batch`` graphs with filler graphs; in a loop each filler would
-  cost a whole pass loop for nothing, so the port has no ``sub_batch``, no
-  tile ladder and no ``batch_fill_factor`` gauge, and :meth:`warm` runs
-  one filler graph a new key.
+  with filler graphs; the port's tiles are as wide as their graphs, so
+  there is no tile ladder.
 * ``profile_dir`` wraps each dispatch in ``torch.profiler.profile`` with a
   TensorBoard trace handler.
 
@@ -47,7 +71,8 @@ import torch
 from repro_torch.core.api import DetectOptions
 from repro_torch.core.dynamic import warm_update
 from repro_torch.core.portfolio import (QualityContract, contract_for,
-                                        run_detection)
+                                        run_detection, run_detection_tile,
+                                        tile_route)
 from repro_torch.device import resolve_device
 from repro_torch.graph.container import Graph
 from repro_torch.service.buckets import Bucket, bucket_of, filler
@@ -92,18 +117,26 @@ class DispatchInfo:
     batch-level spans: ``compile`` = (t_call0, t_call1) on a key's first
     dispatch and empty on a hit; ``engine-dispatch`` = the call interval
     minus compile; ``device-sync`` = (t_call1, t_sync), the copy of the
-    labels to the host.
+    labels to the host.  ``fill`` is the batch's share of its tiles'
+    width (the bucket fill-factor gauge); ``route`` is "tile" where tiles
+    of graphs ran in lockstep, "loop" where the graphs ran one by one.
     """
 
     kind: str                    # "detect" | "update"
     bucket: Bucket
     n: int                       # requests in the batch
+    capacity: int                # n_tiles * sub_batch
     compile_hit: bool
     t_start: float               # dispatch entry (host prep begins)
-    t_call0: float               # the loop over the batch begins
-    t_call1: float               # the loop returned
+    t_call0: float               # the batch's tiles or loop begin
+    t_call1: float               # they returned
     t_sync: float                # labels copied to the host
     algorithm: str = "standard"  # portfolio tier the batch ran
+    route: str = "loop"          # "tile" | "loop"
+
+    @property
+    def fill(self) -> float:
+        return self.n / self.capacity if self.capacity else 0.0
 
 
 # (bucket-padded updated graph — vertex+edge rewrites applied, previous
@@ -121,10 +154,12 @@ def _on(x, dtype, device) -> torch.Tensor:
 
 
 class BatchedLouvainEngine:
-    """GSP-Louvain over same-bucket graph batches, one graph at a time."""
+    """GSP-Louvain over same-bucket graph batches, in tiles of lockstep
+    graphs or one graph at a time (see the module docstring)."""
 
     def __init__(self, *, options: Optional[DetectOptions] = None,
                  algorithms: Optional[Tuple[str, ...]] = None,
+                 sub_batch: Optional[int] = None,
                  telemetry: Optional[Telemetry] = None,
                  profile_dir: Optional[str] = None,
                  faults=None,
@@ -135,6 +170,10 @@ class BatchedLouvainEngine:
             keys derive from it.
           algorithms: every tier this engine serves (``warm()`` loads each);
             None = just ``options.algorithm``.
+          sub_batch: the tile width, the graphs a tile runs in lockstep;
+            None = auto, 1 on the CPU (where a tile of dense ``[b, nv,
+            nv]`` state buys nothing back) and 8 on CUDA, as the
+            reference's rule.
           telemetry: optional hub for the ``engine_compile`` hit/miss
             counter and the algorithm counters.
           profile_dir: trace every dispatch with ``torch.profiler`` into
@@ -153,6 +192,9 @@ class BatchedLouvainEngine:
         for a in algorithms:
             contract_for(a)  # validates tier names
         self.algorithms = tuple(dict.fromkeys(algorithms))  # dedup, ordered
+        if sub_batch is None:
+            sub_batch = 1 if self.device.type == "cpu" else 8
+        self.sub_batch = max(1, int(sub_batch))
         self.telemetry = telemetry or Telemetry()
         self.profile_dir = profile_dir
         self.faults = faults
@@ -186,12 +228,14 @@ class BatchedLouvainEngine:
              "tier": algorithm, "result": "hit" if hit else "miss"})
 
     def _note_dispatch(self, info: DispatchInfo, rows: list):
-        """Emit the algorithm counters of a finished batch."""
+        """Emit the algorithm counters and the fill gauge of a finished
+        batch."""
         tel = self.telemetry
         if not tel.enabled:
             return
         bl = {"bucket": f"{info.bucket.n_cap}x{info.bucket.m_cap}",
               "tier": info.algorithm}
+        tel.gauge("batch_fill_factor", info.fill, bl)
 
         def total(key):
             return float(sum(r[key] for r in rows))
@@ -223,13 +267,28 @@ class BatchedLouvainEngine:
 
     def _detect_key(self, bucket: Bucket, algorithm: Optional[str] = None):
         return self.options.cache_key(
-            bucket, algorithm=self._resolve_algorithm(algorithm),
+            bucket, self.sub_batch,
+            algorithm=self._resolve_algorithm(algorithm),
             scan=self.scan_for(bucket))
 
     def _update_key(self, bucket: Bucket, tau, max_iters):
         return self.options.cache_key(
-            bucket, "update", float(tau), int(max_iters),
+            bucket, self.sub_batch, "update", float(tau), int(max_iters),
             scan=self.scan_for(bucket))
+
+    def route_for(self, bucket: Bucket,
+                  algorithm: Optional[str] = None) -> str:
+        """"tile" where a detect batch of ``bucket`` and this tier runs in
+        lockstep tiles (:func:`~repro_torch.core.portfolio.tile_route` at
+        ``sub_batch > 1``), else "loop"."""
+        opts = self.options.replace(
+            algorithm=self._resolve_algorithm(algorithm), mesh=None)
+        tiled = self.sub_batch > 1 and tile_route(
+            opts, bucket.nv, bucket.m_cap, self.device.type)
+        return "tile" if tiled else "loop"
+
+    def _capacity(self, n: int) -> int:
+        return -(-n // self.sub_batch) * self.sub_batch
 
     def _dispatch_key(self, key) -> bool:
         """Record ``key``'s dispatch; whether it was dispatched before."""
@@ -243,11 +302,11 @@ class BatchedLouvainEngine:
 
     def warm(self, bucket: Bucket, *,
              algorithms: Optional[Sequence[str]] = None) -> int:
-        """Dispatch one filler graph for each configured tier
-        (``algorithms`` overrides ``self.algorithms``) whose key is new on
-        ``bucket``; returns the number of dispatches.  Loads the kernels
-        and warms the allocator at the bucket's shape before live
-        traffic."""
+        """Dispatch one full tile of filler graphs (``sub_batch`` of them)
+        for each configured tier (``algorithms`` overrides
+        ``self.algorithms``) whose key is new on ``bucket``; returns the
+        number of dispatches.  Loads the kernels and warms the allocator
+        at the bucket's shape and tile width before live traffic."""
         n = 0
         pad = filler(bucket, device=self.device)
         # warm-up dispatches bypass any installed fault plan: injected
@@ -257,7 +316,7 @@ class BatchedLouvainEngine:
             for alg in (algorithms if algorithms is not None
                         else self.algorithms):
                 if self._detect_key(bucket, alg) not in self._keys:
-                    self.detect_batch([pad], algorithm=alg)
+                    self.detect_batch([pad] * self.sub_batch, algorithm=alg)
                     n += 1
         finally:
             self.faults = faults
@@ -270,12 +329,9 @@ class BatchedLouvainEngine:
             raise ValueError("a batch requires homogeneous capacities")
         return bucket
 
-    def _one(self, g: Graph, algorithm: str) -> dict:
-        """One graph's ``detect()`` on the engine's device: labels (still
-        on the device) and host numbers.  A batch never runs sharded (the
-        mesh is :meth:`detect_sharded`'s), as in the reference."""
-        d = run_detection(g, self.options.replace(algorithm=algorithm,
-                                                  mesh=None))
+    def _row(self, d) -> dict:
+        """A ``Detection``'s result row: labels (still on the device) and
+        host numbers."""
         return dict(
             C=d.labels,
             n_communities=int(d.n_communities),
@@ -287,12 +343,30 @@ class BatchedLouvainEngine:
             q=d.modularity,
         )
 
+    def _rows(self, graphs: list, algorithm: str, route: str) -> list:
+        """The batch's result rows on the engine's device: tiles of
+        ``sub_batch`` graphs on the tile route, of one graph (its
+        ``run_detection``) on the loop route.  A batch never runs sharded
+        (the mesh is :meth:`detect_sharded`'s), as in the reference."""
+        opts = self.options.replace(algorithm=algorithm, mesh=None)
+        graphs = [g.to(self.device) for g in graphs]
+        width = self.sub_batch if route == "tile" else 1
+        rows = []
+        for i in range(0, len(graphs), width):
+            tile = graphs[i:i + width]
+            dets = (run_detection_tile(tile, opts) if len(tile) > 1
+                    else [run_detection(tile[0], opts)])
+            rows.extend(self._row(d) for d in dets)
+        return rows
+
     def detect_batch(self, graphs: Sequence[Graph], *,
                      algorithm: Optional[str] = None,
                      fault_ids: Optional[Sequence[str]] = None
                      ) -> list[DetectResult]:
         """Detect communities for a homogeneous (same-bucket, same-tier)
-        batch, one graph after another on the engine's device.
+        batch on the engine's device: in tiles of at most ``sub_batch``
+        graphs in lockstep where :meth:`route_for` says "tile", else one
+        graph after another.
 
         ``algorithm`` selects the tier for the whole batch (None = the
         engine default).  ``fault_ids`` (the batch's graph ids) scope any
@@ -308,17 +382,20 @@ class BatchedLouvainEngine:
         t_start = time.perf_counter()
         bucket = self._same_bucket(graphs)
         hit = self._dispatch_key(self._detect_key(bucket, alg))
+        route = self.route_for(bucket, alg)
         t_call0 = time.perf_counter()
         with self._profiled():
-            rows = [self._one(g.to(self.device), alg) for g in graphs]
+            rows = self._rows(graphs, alg, route)
             t_call1 = time.perf_counter()
-            for r in rows:
-                r["C"] = r["C"].cpu().numpy()
+            labels = torch.stack([r["C"] for r in rows]).cpu().numpy()
+            for r, C in zip(rows, labels):
+                r["C"] = C
         t_sync = time.perf_counter()
         info = DispatchInfo(
-            kind="detect", bucket=bucket, n=len(graphs), compile_hit=hit,
+            kind="detect", bucket=bucket, n=len(graphs),
+            capacity=self._capacity(len(graphs)), compile_hit=hit,
             t_start=t_start, t_call0=t_call0, t_call1=t_call1,
-            t_sync=t_sync, algorithm=alg)
+            t_sync=t_sync, algorithm=alg, route=route)
         self.last_detect_info = info
         self._note_compile("detect", bucket, hit, alg)
         self._note_dispatch(info, rows)
@@ -340,8 +417,6 @@ class BatchedLouvainEngine:
         candidates, as the reference's engine does), the detector and
         modularity on the engine's device.  The sharded telemetry (halo
         bytes, ghost counts, per-shard sweeps) goes to the engine's hub.
-        The reference's ``DispatchInfo`` also carries ``capacity`` and
-        ``fill``, which the port's record does not.
         """
         if self.options.mesh is None:
             raise ValueError(
@@ -359,7 +434,8 @@ class BatchedLouvainEngine:
         C = d.labels.cpu().numpy()
         t_sync = time.perf_counter()
         self.last_detect_info = DispatchInfo(
-            kind="detect", bucket=bucket_of(g), n=1, compile_hit=True,
+            kind="detect", bucket=bucket_of(g), n=1, capacity=1,
+            compile_hit=True,
             t_start=t_start, t_call0=t_start, t_call1=t_call1,
             t_sync=t_sync, algorithm=alg)
         return DetectResult(
@@ -411,7 +487,8 @@ class BatchedLouvainEngine:
                 r["C"] = r["C"].cpu().numpy()
         t_sync = time.perf_counter()
         info = DispatchInfo(
-            kind="update", bucket=bucket, n=len(items), compile_hit=hit,
+            kind="update", bucket=bucket, n=len(items),
+            capacity=self._capacity(len(items)), compile_hit=hit,
             t_start=t_start, t_call0=t_call0, t_call1=t_call1,
             t_sync=t_sync)
         self.last_update_info = info

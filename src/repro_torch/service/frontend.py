@@ -199,9 +199,10 @@ class ServiceFrontend:
             self.exporter = MetricsExporter(self.mem_sink,
                                             port=c.exporter_port)
         self.engine = BatchedLouvainEngine(
-            options=c.detect, telemetry=self.telemetry,
-            profile_dir=c.profile_dir, faults=c.fault_plan,
-            algorithms=c.serve_algorithms, device=self.device)
+            options=c.detect, sub_batch=c.sub_batch,
+            telemetry=self.telemetry, profile_dir=c.profile_dir,
+            faults=c.fault_plan, algorithms=c.serve_algorithms,
+            device=self.device)
         self.admission = AdmissionController(
             c.buckets, batch_size=c.batch_size, max_delay_s=c.max_delay_s,
             max_pending_per_tenant=c.max_pending_per_tenant,

@@ -25,10 +25,10 @@ requests without pumping see
 memory growth.
 
 It runs on CUDA unless given ``device="cpu"`` (``device=None`` raises
-when there is no card).  The reference's ``sub_batch`` and
-``dense_max_nv`` keywords have no counterpart: the engine has no tile to
-size, and the dense crossover is ``DetectOptions(dense_max_nv=...)``
-inside ``config=ServiceConfig(detect=...)``.  Passing either is Python's
+when there is no card).  ``sub_batch`` is the engine's tile width, as in
+the reference.  The reference's ``dense_max_nv`` keyword has no
+counterpart: the dense crossover is ``DetectOptions(dense_max_nv=...)``
+inside ``config=ServiceConfig(detect=...)``, and passing it is Python's
 own ``TypeError``.
 """
 from __future__ import annotations
@@ -53,6 +53,7 @@ class CommunityService:
                  config: Optional[ServiceConfig] = None,
                  buckets: Sequence[Bucket] = DEFAULT_BUCKETS,
                  batch_size: int = 32, max_delay_s: float = 0.05,
+                 sub_batch: Optional[int] = None,
                  clock=None, device=None):
         """Either pass a full ``config=ServiceConfig(...)`` or the plain
         keywords (which build one); ``config`` wins when both are given.
@@ -60,7 +61,8 @@ class CommunityService:
         if config is None:
             config = ServiceConfig(
                 detect=DetectOptions(louvain=cfg), buckets=tuple(buckets),
-                batch_size=batch_size, max_delay_s=max_delay_s)
+                batch_size=batch_size, max_delay_s=max_delay_s,
+                sub_batch=sub_batch)
         self.frontend = ServiceFrontend(config, clock=clock, device=device)
 
     # -- delegation --------------------------------------------------------

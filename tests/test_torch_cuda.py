@@ -1377,6 +1377,126 @@ def test_dense_kernels_equal_plain_on_stress_cases(cuda, name, variant):
     assert _same_bits(q, dense_modularity_cuda(*q_args))
 
 
+# --- the batched engine's tile: the dense kernels with a graph axis, and the
+# tile on the card against the CPU ------------------------------------------
+
+def _tile_graphs(dev, graphs, nv=None):
+    """``graphs`` graphs of one bucket on ``dev``: phase 6's large family
+    (``nv = 1025``), or ``nv - 1`` vertex slots past the shared-memory
+    limit (a sparse random graph a seed)."""
+    from repro_torch.graph import from_undirected
+
+    if nv is None:
+        return [sbm_graph(1024, 16, 0.2, 0.003, seed=3 + s, n_cap=1024,
+                          m_cap=16384, device=dev)[0] for s in range(graphs)]
+    out = []
+    for s in range(graphs):
+        rng = np.random.default_rng(s)
+        n = nv - 1 - 7 * s
+        u, v = rng.integers(0, n, 3 * n), rng.integers(0, n, 3 * n)
+        keep = u != v
+        out.append(from_undirected(n, u[keep], v[keep], n_cap=nv - 1,
+                                   m_cap=6 * nv, device=dev))
+    return out
+
+
+TILE_KERNEL_CASES = [(2, None), (8, None), (3, "past-max-nv")]
+
+
+@pytest.mark.parametrize("variant", ["handshake", "parity", "all"])
+@pytest.mark.parametrize("graphs,past", TILE_KERNEL_CASES,
+                         ids=["b2", "b8", "b3-past-max-nv"])
+def test_tile_dense_kernels_equal_batched_plain(cuda, graphs, past, variant):
+    """The half-sweep and modularity kernels with ``graphs > 1`` (one
+    launch each for the whole tile) against the batched plain versions on
+    the card, bit for bit, and each graph's slice against the kernel's
+    launch on that graph alone."""
+    from _torch_tile_cases import tile_state
+
+    from repro_torch.core.local_move import (_half_sweep_dense,
+                                             _half_sweep_dense_plain,
+                                             realized_modularity_tile)
+    from repro_torch.kernels.dense_sweep import (MAX_NV,
+                                                 dense_half_sweep_cuda,
+                                                 dense_modularity_cuda)
+
+    gs = _tile_graphs(cuda, graphs, MAX_NV + 2 if past else None)
+    lone, union, u = tile_state(gs, seed=graphs)
+    target, anchored = {"handshake": (True, True), "parity": (False, True),
+                        "all": (False, False)}[variant]
+    src, dst, w, C, K, Sigma, two_m, movable, tok = union
+    kw = dict(target_ok=tok if target else None, anchored=anchored)
+    before = dense_half_sweep_cuda.launches
+    got, launched = _dense_launches(lambda: _half_sweep_dense(
+        src, dst, w, C, K, Sigma, two_m, movable, graphs=graphs, **kw))
+    assert dense_half_sweep_cuda.launches == before + 1
+    assert launched == {"dense_rows": 1, "dense_sigma": 1}, launched
+    plain = _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m,
+                                    movable, graphs=graphs, **kw)
+    for what, a, p in zip(("C", "Sigma", "moved", "gain", "want"), got,
+                          plain):
+        if what != "gain":   # a sum whose tree depends on the device
+            assert _same_bits(a, p), f"{what}: kernel != batched plain"
+    eptr = torch.tensor(u.edge_offsets, dtype=torch.int32, device=cuda)
+    q, launched = _dense_launches(lambda: dense_modularity_cuda(
+        src, dst, w, got[0], got[1], two_m, edge_counts=u.counts,
+        edge_ptr=eptr))
+    assert launched == {"dense_modularity_kernel": 1}, launched
+    assert _same_bits(q, realized_modularity_tile(src, dst, w, got[0],
+                                                  got[1], two_m, u.counts))
+    nv = u.nv
+    for g, a in enumerate(lone):
+        sl = slice(g * nv, (g + 1) * nv)
+        alone = _half_sweep_dense(*a[:8], target_ok=a[8] if target else None,
+                                  anchored=anchored)
+        assert _same_bits(got[0][sl] - g * nv, alone[0]), g
+        for i in (1, 2, 4):
+            assert _same_bits(got[i][sl], alone[i]), (g, i)
+        q_alone = dense_modularity_cuda(a[0], a[1], a[2], alone[0],
+                                        alone[1], a[6])
+        assert _same_bits(q[g], q_alone), g
+
+
+@pytest.mark.parametrize("sub_batch", [2, 8, 32])
+def test_tile_on_card_equals_cpu(cuda, sub_batch):
+    """The engine's standard batch in tiles on the card against the
+    CPU's, and each result against ``detect()`` on the card; the tile's
+    B.1 and dense launches fewer than the loop's."""
+    from repro_torch.core import DetectOptions, detect
+    from repro_torch.kernels.dense_sweep import kernel_launches
+    from repro_torch.kernels.segsum import segreduce_sorted_cuda
+    from repro_torch.service import BatchedLouvainEngine, Bucket
+    from repro_torch.service.buckets import admit
+
+    graphs = [admit(sbm_graph(56, 4, 0.7, 0.08, seed=s, device="cpu")[0],
+                    [Bucket(64, 2048)])[0] for s in range(12)]
+    cpu = BatchedLouvainEngine(device="cpu", sub_batch=sub_batch)
+    want = cpu.detect_batch(graphs)
+    eng = BatchedLouvainEngine(sub_batch=sub_batch)
+    card = [g.to(cuda) for g in graphs]
+
+    def launches(fn):
+        seg0, dense0 = segreduce_sorted_cuda.launches, kernel_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        dense = sum(n - dense0[k] for k, n in kernel_launches().items())
+        return out, segreduce_sorted_cuda.launches - seg0 + dense
+
+    got, n_tile = launches(lambda: eng.detect_batch(card))
+    assert eng.last_detect_info.route == "tile"
+    dets, n_loop = launches(lambda: [detect(g, options=DetectOptions())
+                                     for g in card])
+    assert n_tile < n_loop, (n_tile, n_loop)
+    for a, b, d in zip(got, want, dets):
+        np.testing.assert_array_equal(a.C, b.C)
+        np.testing.assert_array_equal(a.C, d.labels.cpu().numpy())
+        assert (a.n_communities, a.n_disconnected, a.fraction, a.passes,
+                a.sweeps, a.split_moved, a.q) == (
+            b.n_communities, b.n_disconnected, b.fraction, b.passes,
+            b.sweeps, b.split_moved, b.q)
+        assert a.q == d.modularity and a.n_disconnected == 0
+
+
 # ---------------------------------------------------------------------------
 # the model scaffold (ROADMAP A.14a)
 # ---------------------------------------------------------------------------

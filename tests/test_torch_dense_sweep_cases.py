@@ -152,12 +152,13 @@ def test_plan_constants_match_the_source():
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kWarps"]) == dense_sweep.WARPS
     assert int(consts["kFlat"]) == dense_sweep.FLAT_CHUNK
-    # no float atomics: each atomic lands on an integer count or ticket
+    # no float atomics: each atomic lands on an integer tag or on a
+    # graph's ticket
     targets = set(re.findall(r"atomic(?:Add|CAS)\((&?[\w\[\]]+),", src))
-    assert targets == {"ticket", "&tag[c]"}, targets
-    assert "unsigned int* ticket" in src
-    # the ticket lies in the launch's own scratch, zeroed on its stream
+    assert targets == {"&tickets[g]", "&tag[cl]"}, targets
+    assert "unsigned int* tickets" in src
+    # the tickets lie in the launch's own scratch, zeroed on its stream
     assert "__device__ unsigned" not in src
-    assert "cudaMemsetAsync(ticket, 0" in src
+    assert "cudaMemsetAsync(tickets, 0" in src
     assert "atomicOr" not in src and "atomicMax" not in src
     assert "__fmaf" not in src and "fmaf(" not in src

@@ -297,9 +297,11 @@ def test_port_imports_neither_jax_nor_repro():
     """Every repro_torch module (the CLI ``launch.serve_communities``
     among them, the optimiser, the models, the configs, the LM
     trainers and server, the sharding rules, the step builder, the dry
-    run and the roofline) and the nine ``examples/torch_*.py`` import with
-    jax made unimportable, and no module of the JAX package gets
-    loaded."""
+    run and the roofline, and the engine's tile: ``stack_graphs``, the
+    union, ``run_detection_tile``, ``louvain_tile``, ``local_move_tile``
+    and the per-graph ``sum_inorder``) and the nine
+    ``examples/torch_*.py`` import with jax made unimportable, and no
+    module of the JAX package gets loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
@@ -339,6 +341,13 @@ def test_port_imports_neither_jax_nor_repro():
         "from repro_torch.configs import ARCH_IDS, get_spec\n"
         "for a in ARCH_IDS:\n"
         "    get_spec(a)\n"
+        "from repro_torch.graph.container import (GraphUnion,\n"
+        "    stack_graphs, union_of)\n"
+        "from repro_torch.core.portfolio import (run_detection_tile,\n"
+        "    tile_route)\n"
+        "from repro_torch.core.louvain import louvain_tile\n"
+        "from repro_torch.core.local_move import local_move_tile\n"
+        "from repro_torch.kernels.ops import sum_inorder_per_graph\n"
         "import importlib.util, pathlib\n"
         f"ex = pathlib.Path({str(ROOT / 'examples')!r})\n"
         "paths = sorted(ex.glob('torch_*.py'))\n"

@@ -179,8 +179,8 @@ def test_engine_sortscan_bucket_matches_reference(algorithm):
 # ---------------------------------------------------------------------------
 
 def test_engine_compile_cache_reuse():
-    """One key a (bucket, tier, scan), whatever the batch's size: the port
-    pads no batch, so there is no tile ladder to key on."""
+    """One key a (bucket, sub_batch, tier, scan), whatever the batch's
+    size: the port pads no batch, so there is no tile ladder to key on."""
     graphs = [_port(g) for g in _egos()[:3]]
     eng = _engine()
     eng.detect_batch(graphs[:2])
@@ -199,20 +199,21 @@ def test_engine_compile_cache_reuse():
 
 
 def test_engine_keys_match_reference_layout():
-    """The reference's key without its tile count, sub-batch, seg_impl and
-    block_m: (bucket, tier, scan), and (bucket, "update", tau, max_iters,
-    tier, scan)."""
+    """The reference's key without its tile count, seg_impl and block_m:
+    (bucket, sub_batch, tier, scan), and (bucket, sub_batch, "update",
+    tau, max_iters, tier, scan), at the same tile width."""
     b = Bucket(64, 512)
     jb = jservice.Bucket(64, 512)
-    eng = _engine()
+    eng = _engine(sub_batch=2)
     jeng = jservice.BatchedLouvainEngine(sub_batch=2)
+    assert eng.sub_batch == jeng.sub_batch == 2
     for tiles, alg in ((1, None), (4, "max-quality")):
         key = eng._detect_key(b, alg)
         jkey = jeng._detect_key(jb, tiles, alg)
         assert key[0] == b and jkey[0] == jb
-        assert key[1:] == jkey[3:-2]
+        assert key[1:] == jkey[2:-2]
     ukey = eng._update_key(b, 1e-3, 10)
-    assert ukey[1:] == jeng._update_key(jb, 2, 1e-3, 10)[3:-2]
+    assert ukey[1:] == jeng._update_key(jb, 2, 1e-3, 10)[2:-2]
     assert eng.seg_block_for(b) == 0
 
 
@@ -228,7 +229,7 @@ def test_engine_options_vs_legacy_same_keys():
     assert eng.options == same.options
     assert eng._detect_key(b) == same._detect_key(b)
     assert eng._detect_key(b) == eng.options.cache_key(
-        b, scan=eng.scan_for(b))
+        b, eng.sub_batch, scan=eng.scan_for(b))
     for kw in (dict(cfg=cfg), dict(dense_max_nv=513),
                dict(dense_small_nv=65)):
         with pytest.raises(TypeError, match="unexpected keyword"):
@@ -280,7 +281,7 @@ def test_engine_telemetry_reaches_sink():
     sink = InMemorySink()
     hub = Telemetry()
     hub.register(sink)
-    eng = _engine(telemetry=hub)
+    eng = _engine(telemetry=hub, sub_batch=3)
     graphs = [_port(g) for g in _egos()[:2]]
     first = eng.detect_batch(graphs)
     eng.detect_batch(graphs)
@@ -294,8 +295,13 @@ def test_engine_telemetry_reaches_sink():
         r.sweeps for r in first)
     assert sink.counter_total("split_moves") == 2 * sum(
         r.split_moved for r in first)
-    # no batch is padded, so there is no fill factor to report
-    assert not [n for (n, _) in sink.gauges if n == "batch_fill_factor"]
+    # two graphs in one tile of three: the reference's gauge and labels
+    fill = {dict(lk)["bucket"]: v for (n, lk), v in sink.gauges.items()
+            if n == "batch_fill_factor"}
+    assert fill == {"64x512": 2 / 3}
+    info = eng.last_detect_info
+    assert (info.n, info.capacity, info.fill, info.route) == (
+        2, 3, 2 / 3, "tile")
 
 
 class _FaultStub:

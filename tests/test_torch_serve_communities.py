@@ -182,8 +182,20 @@ def test_cli_without_a_card_raises(monkeypatch):
     assert "SMOKE OK" not in proc.stdout
 
 
-def test_sub_batch_is_an_argparse_error(capsys):
-    with pytest.raises(SystemExit) as e:
-        tsc.main(["--smoke", "--sub-batch", "2", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "--sub-batch" in capsys.readouterr().err
+def test_sub_batch_reaches_the_engine(monkeypatch):
+    """``--sub-batch``, the reference's flag, reaches the engine of the
+    sync smoke, whose standard batches then run in tiles of that width."""
+    widths, routes = [], []
+    detect_batch = tservice.BatchedLouvainEngine.detect_batch
+
+    def spy(self, graphs, **kw):
+        out = detect_batch(self, graphs, **kw)
+        widths.append(self.sub_batch)
+        routes.append(self.last_detect_info.route)
+        return out
+
+    monkeypatch.setattr(tservice.BatchedLouvainEngine, "detect_batch", spy)
+    report = tsc.main(["--smoke", "--sub-batch", "2", "--device", "cpu"])
+    assert report["n_detect"] > 0
+    assert widths and set(widths) == {2}
+    assert "tile" in routes

@@ -95,23 +95,59 @@ def test_service_config_defaults_and_tiers_equal_the_reference():
         t.tier_for(algorithm="balanced")
 
 
-LEGACY = ["sub_batch", "louvain", "dense_max_nv", "dense_small_nv",
+LEGACY = ["louvain", "dense_max_nv", "dense_small_nv",
           "dense_min_density", "seg_impl", "seg_block_m"]
 
 
 @pytest.mark.parametrize("name", LEGACY)
 def test_service_config_legacy_keywords_raise(name):
-    """The reference's ``sub_batch`` and deprecated flat keywords are not
-    fields of the port's config: Python's own TypeError."""
+    """The reference's deprecated flat keywords are not fields of the
+    port's config: Python's own TypeError."""
     with pytest.raises(TypeError, match=name):
         tservice.ServiceConfig(**{name: None})
     assert not hasattr(tservice.ServiceConfig(), name)
 
 
-@pytest.mark.parametrize("name", ["sub_batch", "dense_max_nv"])
-def test_community_service_dropped_keywords_raise(name):
-    with pytest.raises(TypeError, match=name):
-        tservice.CommunityService(device="cpu", **{name: 4})
+@pytest.mark.parametrize("sub_batch", [None, 1, 3])
+def test_service_config_sub_batch_reaches_the_engine(sub_batch):
+    """``ServiceConfig.sub_batch``, the reference's field and default,
+    reaches the front end's engine as the reference's does (``None``: the
+    auto width, 1 on the CPU, as the reference's on its CPU backend)."""
+    widths = []
+    for S, kw in ((tservice, dict(device="cpu")), (jservice, {})):
+        cfg = S.ServiceConfig(sub_batch=sub_batch)
+        assert cfg.sub_batch == sub_batch
+        fe = S.ServiceFrontend(cfg, **kw)
+        widths.append(fe.engine.sub_batch)
+        fe.close()
+    assert widths[0] == widths[1] == (sub_batch or 1)
+
+
+def test_community_service_dropped_keywords_raise():
+    with pytest.raises(TypeError, match="dense_max_nv"):
+        tservice.CommunityService(device="cpu", dense_max_nv=4)
+
+
+@pytest.mark.parametrize("sub_batch", [2, 4])
+def test_community_service_sub_batch_runs_tiles(sub_batch):
+    """``CommunityService(sub_batch=...)`` reaches the engine, whose
+    standard batches on the dense scan run in tiles of that width, each
+    entry the port's own ``detect()`` of its admitted graph."""
+    svc = tservice.CommunityService(device="cpu", sub_batch=sub_batch,
+                                    batch_size=5, max_delay_s=0.0,
+                                    clock=FakeClock())
+    assert svc.engine.sub_batch == sub_batch
+    for i in range(5):
+        svc.submit_detect(f"g{i}", as_input(True, ego(i)))
+    svc.drain()
+    info = svc.engine.last_detect_info
+    assert info.route == "tile" and info.n == 5
+    assert info.capacity == -(-5 // sub_batch) * sub_batch
+    for i in range(5):
+        e = svc.result(f"g{i}")
+        assert e.n_disconnected == 0
+        q_is_detect(e)
+    svc.close()
 
 
 def test_front_ends_raise_without_cuda_unless_given_the_cpu():
