@@ -103,19 +103,21 @@ result line):
    ``detect_batch`` of the 32 graphs with each tier; every result must
    equal ``detect()`` of the same graph on the card (labels,
    ``n_communities``, ``n_disconnected``, ``fraction``, the stats and Q's
-   bits), with 0 disconnected for standard and max-quality; a batch on
-   the loop route (max-quality, fast) launches the segment reduce and the
-   dense kernels as often as the loop of ``detect()`` does, one on the
-   tile route (standard) fewer.  Each batch prints its wall time,
-   graphs/s, the same 32 graphs through a loop of ``detect()`` and the
-   ratio of the two, launches and sweeps a batch and wall ms a sweep.
-   Then each family's standard batch at ``sub_batch`` 1, 8 and 32: every
+   bits), with 0 disconnected for standard and max-quality; every tier
+   takes the tile route, with fewer segment-reduce launches than the
+   loop of ``detect()`` and, for standard and max-quality, fewer dense
+   launches (LPA launches none either way).  Each batch prints its wall
+   time, graphs/s, the same 32 graphs through a loop of ``detect()`` and
+   the ratio of the two, launches and sweeps a batch and wall ms a sweep.
+   Then each family's batches at the widths of ``TILE_WIDTHS`` (standard
+   at ``sub_batch`` 1, 8 and 32, max-quality and fast at 8 and 32): every
    graph equal to its ``detect()``, width 1 (the loop) with the loop's
-   launches, the tiles with fewer, each with its wall, graphs/s and
-   launches (``--profile``: one traced batch's device busy share); and
-   the dense kernels at ``b`` 8 and 32 (one launch for the tile) against
-   their batched plain versions on the family's states, every output
-   bit for bit, and each graph's slice against its ``b = 1`` launch.
+   launches, the tiles with fewer, max-quality with 0 disconnected, each
+   with its wall, graphs/s and launches (``--profile``: one traced
+   batch's device busy share); and the dense kernels at ``b`` 8 and 32
+   (one launch for the tile) against their batched plain versions on the
+   family's sweep and refinement states, every output bit for bit, and
+   each graph's slice against its ``b = 1`` launch.
    Phase 3 makes the same check on its family at ``b = 8`` and times
    both kernels at ``b`` 8 and 32.  Then, on the large bucket, 32
    churn items (phase 3's 16 removals, 8 additions, 64 deletions, 32
@@ -1975,11 +1977,10 @@ def engine_phase(profile=False) -> tuple[dict, object, dict]:
                 f"{1e3 * wall / max(sweeps, 1)}  disconnected={n_disc}  "
                 f"peak device memory={peak:.3f} GiB")
             # the loop route launches what the loop of detect() does; the
-            # tile route fewer
-            fewer = n_seg < n_loop and n_dense < n_dense_loop
-            same = n_seg == n_loop and n_dense == n_dense_loop
-            if not equal or not hit or not (fewer if route == "tile"
-                                            else same):
+            # tile route fewer (LPA launches no dense kernel either way)
+            ok = launches_ok(alg, route, (n_seg, n_dense),
+                             (n_loop, n_dense_loop))
+            if not equal or not hit or route != "tile" or not ok:
                 raise AssertionError(
                     f"engine {alg} on {name} ({route}): equal={equal} key "
                     f"hit={hit} launches {n_seg}/{n_dense} against "
@@ -1987,10 +1988,10 @@ def engine_phase(profile=False) -> tuple[dict, object, dict]:
             if alg != "fast" and n_disc:
                 raise AssertionError(f"engine {alg}: {n_disc} disconnected")
             launches[f"engine detect_batch {alg}, {name}"] = n_seg
+            loops[name, alg] = (dets, wall_loop, n_loop, n_dense_loop)
             if alg == "standard":
                 standard[name] = res
                 walls[name] = wall
-                loops[name] = (dets, wall_loop, n_loop, n_dense_loop)
         if profile:
             wall, n_launch, busy = traced_batch(engine, graphs, "standard")
             sweeps = sum(r.sweeps for r in standard[name])
@@ -2057,71 +2058,92 @@ def dense_counted(fn):
     return out, sum(kernel_launches().values()) - before
 
 
-TILE_WIDTHS = (1, 8, 32)
+# the tile widths phase 6 runs each tier at (width 1 is the loop route,
+# which runs what the loop of detect() does)
+TILE_WIDTHS = {"standard": (1, 8, 32), "max-quality": (8, 32),
+               "fast": (8, 32)}
+
+
+def launches_ok(alg, route, got, loop) -> bool:
+    """A batch's (segment-reduce, dense-kernel) launches against the loop
+    of ``detect()``'s: the same on the loop route; on the tile route fewer
+    segment reduces, and fewer dense launches for the Louvain tiers (LPA
+    launches none either way)."""
+    if route == "loop":
+        return got == loop
+    dense_ok = (got[1] == loop[1] == 0 if alg == "fast"
+                else got[1] < loop[1])
+    return got[0] < loop[0] and dense_ok
 
 
 def tile_widths(fams, loops, profile) -> dict:
-    """Phase 6's tiles: each family's standard batch of 32 through an
-    engine at ``sub_batch`` 1, 8 and 32 (the width-1 engine takes the
-    loop route, the others the tile), each graph equal to its ``detect()``
-    on the card bit for bit.  Width 1 launches the segment reduce and the
-    dense kernels as often as the loop of ``detect()``; the tiles fewer.
+    """Phase 6's tiles: each family's batch of 32 through an engine at
+    each tier's :data:`TILE_WIDTHS` (the width-1 engine takes the loop
+    route, the others the tile), each graph equal to its ``detect()`` on
+    the card bit for bit.  Width 1 launches the segment reduce and the
+    dense kernels as often as the loop of ``detect()``; the tiles fewer
+    (:func:`launches_ok`), and max-quality leaves nothing disconnected.
     Prints each batch's wall, graphs/s, launches and sweeps, and under
     ``--profile`` one traced batch's device busy share; then holds the
     dense kernels at ``b`` 8 and 32 to their batched plain versions on
-    the family's states.  Returns the launches by path."""
+    the family's states, sweep and refinement states.  Returns the
+    launches by path."""
     import torch
 
     from repro_torch.service import BatchedLouvainEngine
 
     out = {}
     for name, bucket, graphs in fams:
-        dets, wall_loop, n_loop, n_dense_loop = loops[name]
         n = len(graphs)
-        log(f"  tiles, {name}: the loop of detect() standard={wall_loop} s "
-            f"({n / wall_loop} graphs/s)  segreduce launches={n_loop}  "
-            f"dense kernel launches={n_dense_loop}")
-        for width in TILE_WIDTHS:
-            eng = BatchedLouvainEngine(sub_batch=width)
-            t0 = time.perf_counter()
-            eng.warm(bucket)
-            torch.cuda.synchronize()
-            t_warm = time.perf_counter() - t0
-            (res, n_dense), wall, n_seg, peak = timed_path(
-                lambda: dense_counted(lambda: eng.detect_batch(graphs)))
-            info = eng.last_detect_info
-            equal = all(same_as_detect(r, d) for r, d in zip(res, dets))
-            sweeps = sum(r.sweeps for r in res)
-            log(f"    sub_batch={width} ({info.route}, {-(-n // width)} "
-                f"tiles, fill={info.fill}): equal to detect() (labels, "
-                f"counts, stats, Q bits)={equal}  batch wall={wall} s "
-                f"({n / wall} graphs/s)  loop/batch={wall_loop / wall}  "
-                f"segreduce "
-                f"launches a batch={n_seg} (loop {n_loop})  dense kernel "
-                f"launches a batch={n_dense} (loop {n_dense_loop})  sweeps "
-                f"(summed over graphs)={sweeps}  warm={t_warm} s  peak "
-                f"device memory={peak:.3f} GiB")
-            if width == 1:
-                ok = info.route == "loop" and (n_seg, n_dense) == (
-                    n_loop, n_dense_loop)
-            else:
-                ok = info.route == "tile" and n_seg < n_loop and \
-                    n_dense < n_dense_loop
-            if not equal or not ok:
-                raise AssertionError(
-                    f"tiles of {width} on {name}: equal={equal} route="
-                    f"{info.route} launches {n_seg}/{n_dense} against the "
-                    f"loop's {n_loop}/{n_dense_loop}")
-            out[f"engine standard sub_batch={width}, {name}"] = n_seg
-            out[f"engine standard sub_batch={width} dense kernels, "
-                f"{name}"] = n_dense
-            if profile:
-                t_wall, n_launch, busy = traced_batch(eng, graphs,
-                                                      "standard")
-                log(f"      traced: wall={t_wall} s  CUDA kernel launches="
-                    f"{n_launch}  device busy={busy} s "
-                    f"({100 * busy / t_wall} %)")
-        for width in TILE_WIDTHS[1:]:
+        for alg, widths in TILE_WIDTHS.items():
+            dets, wall_loop, n_loop, n_dense_loop = loops[name, alg]
+            log(f"  tiles {alg}, {name}: the loop of detect()={wall_loop} s"
+                f" ({n / wall_loop} graphs/s)  segreduce launches={n_loop}"
+                f"  dense kernel launches={n_dense_loop}")
+            for width in widths:
+                eng = BatchedLouvainEngine(sub_batch=width,
+                                           algorithms=(alg,))
+                t0 = time.perf_counter()
+                eng.warm(bucket)
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter() - t0
+                (res, n_dense), wall, n_seg, peak = timed_path(
+                    lambda: dense_counted(
+                        lambda: eng.detect_batch(graphs, algorithm=alg)))
+                info = eng.last_detect_info
+                equal = all(same_as_detect(r, d) for r, d in zip(res, dets))
+                sweeps = sum(r.sweeps for r in res)
+                n_disc = sum(r.n_disconnected for r in res)
+                log(f"    {alg} sub_batch={width} ({info.route}, "
+                    f"{-(-n // width)} tiles, fill={info.fill}): equal to "
+                    f"detect() (labels, counts, stats, Q bits)={equal}  "
+                    f"batch wall={wall} s ({n / wall} graphs/s)  "
+                    f"loop/batch={wall_loop / wall}  segreduce launches a "
+                    f"batch={n_seg} (loop {n_loop})  dense kernel launches "
+                    f"a batch={n_dense} (loop {n_dense_loop})  sweeps or "
+                    f"rounds (summed over graphs)={sweeps}  disconnected="
+                    f"{n_disc}  warm={t_warm} s  peak device memory="
+                    f"{peak:.3f} GiB")
+                route = "loop" if width == 1 else "tile"
+                ok = info.route == route and launches_ok(
+                    alg, route, (n_seg, n_dense), (n_loop, n_dense_loop))
+                if alg == "max-quality":
+                    ok &= n_disc == 0
+                if not equal or not ok:
+                    raise AssertionError(
+                        f"{alg} tiles of {width} on {name}: equal={equal} "
+                        f"route={info.route} launches {n_seg}/{n_dense} "
+                        f"against the loop's {n_loop}/{n_dense_loop}, "
+                        f"{n_disc} disconnected")
+                out[f"engine {alg} sub_batch={width}, {name}"] = n_seg
+                out[f"engine {alg} sub_batch={width} dense kernels, "
+                    f"{name}"] = n_dense
+                if profile:
+                    t_wall, n_launch, busy = traced_batch(eng, graphs, alg)
+                    log(f"      traced: wall={t_wall} s  CUDA kernel "
+                        f"launches={n_launch}  device busy={busy} s "
+                        f"({100 * busy / t_wall} %)")
+        for width in TILE_WIDTHS["standard"][1:]:
             log(f"    dense kernels at b={width} on this family's states: "
                 f"{tile_kernel_checks(graphs[:width], seed=width)} checks "
                 f"equal")
@@ -2131,8 +2153,9 @@ def tile_widths(fams, loops, profile) -> dict:
 def tile_kernel_checks(graphs, seed) -> int:
     """The dense kernels with a graph axis (``b = len(graphs)``, one
     launch each for the tile) on a seeded state of ``graphs``
-    (``tests/_torch_tile_cases.py``): every output of the half-sweep (with
-    and without targets and anchoring) and the modularity bit for bit
+    (``tests/_torch_tile_cases.py``), a sweep's and a refinement's (cross-
+    community weights zeroed, singletons): every output of the half-sweep
+    (with and without targets and anchoring) and the modularity bit for bit
     against the batched plain versions on the card, and each graph's
     slice against the ``b = 1`` launch on that graph alone.  Returns the
     number of checks; raises on a miss."""
@@ -2146,12 +2169,16 @@ def tile_kernel_checks(graphs, seed) -> int:
                                              realized_modularity_tile)
     from repro_torch.kernels.dense_sweep import dense_modularity_cuda
 
-    lone, union, u = tile_state(graphs, seed=seed)
-    b, nv = u.b, u.nv
-    src, dst, w, C, K, Sigma, two_m, movable, tok = union
-    eptr = torch.tensor(u.edge_offsets, dtype=torch.int32, device="cuda")
     checks, misses = 0, []
-    for target, anchored in ((True, True), (False, True), (False, False)):
+    cases = [(refine, target, anchored) for refine in (False, True)
+             for target, anchored in ((True, True), (False, True),
+                                      (False, False))]
+    for refine, target, anchored in cases:
+        lone, union, u = tile_state(graphs, seed=seed, refine=refine)
+        b, nv = u.b, u.nv
+        src, dst, w, C, K, Sigma, two_m, movable, tok = union
+        eptr = torch.tensor(u.edge_offsets, dtype=torch.int32,
+                            device="cuda")
         kw = dict(target_ok=tok if target else None, anchored=anchored)
         got = _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
                                 graphs=b, **kw)
@@ -2173,8 +2200,8 @@ def tile_kernel_checks(graphs, seed) -> int:
                 a[0], a[1], a[2], alone[0], alone[1], a[6]))
         checks += 1
         if not (ok and ok_q):
-            misses.append(f"target={target} anchored={anchored} (sweep "
-                          f"{ok}, Q {ok_q})")
+            misses.append(f"refine={refine} target={target} anchored="
+                          f"{anchored} (sweep {ok}, Q {ok_q})")
     if misses:
         raise AssertionError(f"dense kernels at b={b} differ from their "
                              "batched plain versions: " + "; ".join(misses))

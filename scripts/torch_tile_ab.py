@@ -1,5 +1,5 @@
-"""Paired timing of the engine's standard batches at several tile widths,
-one tree a process.
+"""Paired timing of the engine's batches at several tile widths, one tree
+a process.
 
 Two versions of ``repro_torch`` are compared on one card by running this
 script once a version, alternating them in one command (A, B, B, A):
@@ -10,7 +10,8 @@ script once a version, alternating them in one command (A, B, B, A):
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported.
 Each run prints one JSON line: for each of ``chip_smoke.py`` phase 6's
 two families of 32 (``Bucket(1024, 16384)`` and the ego-nets of
-``Bucket(64, 2048)``) and each ``--widths`` entry, the engine's standard
+``Bucket(64, 2048)``), each ``--tiers`` entry (default ``standard``) and
+each ``--widths`` entry, keyed ``"<tier> <width>"``, the engine's
 ``detect_batch`` after ``warm(bucket)``: the median wall of ``--reps``
 batches, graphs/s, the segment-reduce (B.1) and dense-kernel launches a
 batch, the route, and a digest of every graph's labels, stats and Q
@@ -68,14 +69,14 @@ def _dense_launches() -> int:
     return sum(kernel_launches().values())
 
 
-def run_width(width, bucket, graphs, reps: int) -> dict:
+def run_width(width, bucket, graphs, reps: int, tier: str) -> dict:
     import torch
 
     from repro_torch.kernels.segsum import segreduce_sorted_cuda
     from repro_torch.service import BatchedLouvainEngine
 
-    engine = (BatchedLouvainEngine() if width == "loop"
-              else BatchedLouvainEngine(sub_batch=width))
+    engine = (BatchedLouvainEngine(algorithms=(tier,)) if width == "loop"
+              else BatchedLouvainEngine(sub_batch=width, algorithms=(tier,)))
     engine.warm(bucket)
     walls = []
     for _ in range(reps):
@@ -83,7 +84,7 @@ def run_width(width, bucket, graphs, reps: int) -> dict:
         segreduce_sorted_cuda.launches = 0
         dense0 = _dense_launches()
         t0 = time.perf_counter()
-        res = engine.detect_batch(graphs)
+        res = engine.detect_batch(graphs, algorithm=tier)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         seg, dense = segreduce_sorted_cuda.launches, _dense_launches() - dense0
@@ -103,6 +104,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--widths", default="1,8,32",
                     help="comma-separated tile widths")
+    ap.add_argument("--tiers", default="standard",
+                    help="comma-separated tiers")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
     import inspect
@@ -122,9 +125,9 @@ def main(argv=None) -> dict:
     rep = dict(label=args.label,
                package=str(Path(repro_torch.__file__).parent), batches={})
     for name, bucket, graphs in families():
-        rep["batches"][name] = {str(w): run_width(w, bucket, graphs,
-                                                  args.reps)
-                                for w in widths}
+        rep["batches"][name] = {
+            f"{tier} {w}": run_width(w, bucket, graphs, args.reps, tier)
+            for tier in args.tiers.split(",") for w in widths}
     print(json.dumps(rep))
     return rep
 

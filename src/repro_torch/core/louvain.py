@@ -32,7 +32,7 @@ bit.
 with wall seconds per phase and per pass, and the reference's host
 arithmetic in float64.  :func:`louvain_tile` is the pass loop of the
 batched engine's tile, for several graphs of one bucket at once (the
-dense scan, ``split='sp-pj'``).
+dense scan, every split policy).
 """
 from __future__ import annotations
 
@@ -49,7 +49,8 @@ from repro_torch.core.local_move import (dense_adjacency, local_move,
 from repro_torch.core.split import split_labels, split_labels_tile
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as col
-from repro_torch.graph.container import Graph, strip_padding, union_of
+from repro_torch.graph.container import (Graph, GraphUnion, strip_padding,
+                                         union_of)
 from repro_torch.kernels import ops
 
 SPLITS = ("none", "sp-lp", "sp-lpp", "sp-pj", "sl-lp", "sl-lpp", "sl-pj",
@@ -137,6 +138,28 @@ def refine_labels(src, dst, w, C, two_m, *, tau, max_iters: int = 10,
     return R
 
 
+def refine_labels_tile(src, dst, w, C, two_m, *, counts, tau,
+                       max_iters: int = 10, adj=None):
+    """:func:`refine_labels` (dense scan) of each graph of a tile: ``C``
+    ``[b * nv]`` in a ``GraphUnion``'s slots (``counts`` its per-graph
+    live edges, host ints), ``two_m`` float32 ``[b]``, each graph's 2m.
+    The cross-community weights are zeroed and every edge kept, so the
+    pass's :func:`~repro_torch.core.local_move.tile_adjacency` ``adj`` is
+    shared; ``K_in`` is one segment sum over the union's slots; the local
+    move starts from singletons with its own defaults ('handshake',
+    pruning), as :func:`refine_labels`'s does.  Returns the refined labels
+    ``[b * nv]``, each graph's the bits of :func:`refine_labels` on it
+    alone."""
+    n = C.shape[0]
+    w_in = torch.where(C[src] == C[dst], w, 0.0)
+    K_in = ops.segreduce_sorted(w_in, src, n, op="sum")
+    C0 = torch.arange(n, dtype=torch.int32, device=C.device)
+    R, _, _, _ = local_move_tile(src, dst, w_in, C0, K_in, K_in, two_m,
+                                 counts=counts, tau=tau, max_iters=max_iters,
+                                 adj=adj)
+    return R
+
+
 def _split_slot(cfg: LouvainConfig, src, dst, w, C, two_m, tau, scan, adj):
     """The labels the pass's split slot gives: refined or split ``C``."""
     if cfg.split == "refine":
@@ -167,6 +190,37 @@ def _split_unconnected(live, C, node_mask):
     first = ops.segreduce_sorted(L[perm], s_c, nv, op="min")
     moved = int(torch.sum((L != first[C]) & node_mask))
     return seg.renumber(L, node_mask, nv)[0], moved
+
+
+def _split_unconnected_tile(adj, C, node_mask):
+    """:func:`_split_unconnected` of each graph of a tile: ``adj`` the
+    :func:`~repro_torch.core.local_move.tile_adjacency` ``[b, nv, nv]`` of
+    the graphs' live edges, ``C`` and ``node_mask`` ``[b * nv]`` in union
+    slots.  Returns ``(C, moved)``, ``moved`` int64 numpy ``[b]``.
+
+    The split is the dense one on each graph's adjacency (the single-graph
+    repair runs the coo split: both reach the same integer fixpoint).
+    Pieces and communities are counted per graph in one host copy; only a
+    graph whose counts differ is renumbered from its pieces, and the rest
+    keep ``C`` as it was, with 0 moved."""
+    b, nv, _ = adj.shape
+    n = b * nv
+    slot = torch.arange(n, dtype=torch.int32, device=C.device)
+    base = slot - torch.remainder(slot, nv)
+    L = split_labels_tile((C - base).view(b, nv), adj, mode="pj"
+                          ).view(n) + base
+    counts = torch.stack([seg.count_communities_tile(x, node_mask, b)
+                          for x in (L, C)]).cpu().numpy()
+    split = counts[0] != counts[1]
+    if not split.any():
+        return C, np.zeros(b, np.int64)
+    s_c, perm = torch.sort(C, stable=True)
+    first = ops.segreduce_sorted(L[perm], s_c, n, op="min")
+    moved = torch.sum(((L != first[C]) & node_mask).view(b, nv), dim=1)
+    split_t = torch.from_numpy(split).to(C.device)
+    renumbered = seg.renumber_tile(L, node_mask, b)[0]
+    C = torch.where(split_t.repeat_interleave(nv), renumbered, C)
+    return C, np.where(split, moved.cpu().numpy(), 0)
 
 
 def _louvain(g: Graph, cfg: LouvainConfig, clock: _Clock,
@@ -317,29 +371,33 @@ def louvain_staged(g: Graph, cfg: LouvainConfig | None = None, *,
     return C, stats
 
 
-def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig()):
-    """The pass loop of :func:`louvain_impl` (``scan='dense'``,
-    ``split='sp-pj'``) for the ``b`` graphs of a :func:`stack_graphs`
-    result at once, the batched engine's tile.  Returns ``(C int32 [b,
-    nv], stats, union)``: each graph's top-level labels and stats, the
-    bits of ``louvain_impl`` on it alone, and the
+def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig(), *,
+                 union: GraphUnion | None = None):
+    """The pass loop of :func:`louvain_impl` (``scan='dense'``) for the
+    ``b`` graphs of a :func:`stack_graphs` result at once, the batched
+    engine's tile, with any split policy.  Returns ``(C int32 [b, nv],
+    stats, union)``: each graph's top-level labels and stats, the bits of
+    ``louvain_impl`` on it alone, and the
     :class:`~repro_torch.graph.container.GraphUnion` of its live edges
-    (the detector and the modularity run on it).
+    (the detector and the modularity run on it; ``union`` passes one
+    already made of ``stacked``).
 
     The graphs still in the loop form one union a pass: one ``K``, one
-    :func:`~repro_torch.core.local_move.local_move_tile`, one tile split,
-    one renumber and one aggregation for all.  Each graph keeps its own
-    ``li``, community count, ``n_cur``, float32 shrink test and stats; all
-    start together, so they share the pass index and ``tau``.  A graph
-    whose loop is done (``li <= 1`` or a low shrink) leaves the union at
-    the aggregation, its labels final.  Each pass reads the community
-    counts and split moves of all its graphs in one host copy."""
+    :func:`~repro_torch.core.local_move.local_move_tile`, one split slot
+    (``split_labels_tile`` for 'sp-*', :func:`refine_labels_tile` for
+    'refine', nothing for 'none' and 'sl-*'), one renumber and one
+    aggregation for all.  Each graph keeps its own ``li``, community count,
+    ``n_cur``, float32 shrink test and stats; all start together, so they
+    share the pass index and ``tau``.  A graph whose loop is done (``li <=
+    1`` or a low shrink) leaves the union at the aggregation, its labels
+    final.  Each pass reads the community counts and split moves of all
+    its graphs in one host copy.  After the loop, 'sl-*' splits every
+    graph once and 'refine' splits what refinement left unconnected
+    (:func:`_split_unconnected_tile`), both on the tile adjacency of the
+    original live edges."""
     _check_split(cfg.split)
-    if cfg.split != "sp-pj":
-        raise ValueError("the tile runs split='sp-pj' only, got "
-                         f"{cfg.split!r}")
     b, nv, dev = stacked.src.shape[0], stacked.nv, stacked.device
-    union = union_of(stacked)
+    union = union_of(stacked) if union is None else union
     # 2m over each graph's padded edges, as Graph.total_weight_2m
     two_m = ops.sum_inorder_per_graph(stacked.w.reshape(-1),
                                       (stacked.m_cap,) * b)
@@ -347,6 +405,9 @@ def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig()):
     local = torch.arange(nv, dtype=torch.int32, device=dev)
     Ctop = local.repeat(b, 1)
     esrc, edst, ew, counts = union.src, union.dst, union.w, union.counts
+    adj0 = tile_adjacency(esrc, edst, b, nv)   # the original live edges
+    refine = cfg.split == "refine"
+    mode = _split_mode(cfg.split)
     pos = np.arange(b)              # the graphs in the union, in order
     n_cur = n_nodes.copy()
     tau = np.float32(cfg.tolerance)
@@ -363,13 +424,22 @@ def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig()):
         node_valid = (local[None, :] < torch.from_numpy(n_cur[pos]).to(dev)[
             :, None]).view(a * nv)
         K = ops.segreduce_sorted(ew, esrc, a * nv, op="sum")
-        adj = tile_adjacency(esrc, edst, a, nv)
+        adj = adj0 if n_pass == 0 else tile_adjacency(esrc, edst, a, nv)
+        two_m_a = two_m[pos_t]
         C, _, li, _ = local_move_tile(
-            esrc, edst, ew, ids, K, K, two_m[pos_t], counts=counts, tau=tau,
+            esrc, edst, ew, ids, K, K, two_m_a, counts=counts, tau=tau,
             max_iters=cfg.max_iters, sync=cfg.sync, prune=cfg.prune, adj=adj)
-        labels = split_labels_tile((C - base).view(a, nv), adj, mode="pj",
-                                   max_iters=cfg.split_max_iters
-                                   ).view(a * nv) + base
+        if refine:
+            labels = refine_labels_tile(esrc, edst, ew, C, two_m_a,
+                                        counts=counts, tau=tau,
+                                        max_iters=cfg.max_iters, adj=adj)
+        elif cfg.split.startswith("sp"):
+            labels = split_labels_tile((C - base).view(a, nv), adj,
+                                       mode=mode,
+                                       max_iters=cfg.split_max_iters
+                                       ).view(a * nv) + base
+        else:
+            labels = C
         C_dense, n_comms = seg.renumber_tile(labels, node_valid, a)
         moved = torch.sum(((labels != C) & node_valid).view(a, nv), dim=1)
         n_comms, moved = torch.stack([n_comms.to(torch.int64), moved]
@@ -405,8 +475,21 @@ def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig()):
         tau = tau / drop
 
     full = torch.arange(b * nv, dtype=torch.int32, device=dev)
-    top = Ctop.view(b * nv) + (full - torch.remainder(full, nv))
+    base = full - torch.remainder(full, nv)
+    top = Ctop.view(b * nv) + base
     node_mask = (local[None, :] < stacked.n_nodes[:, None]).view(b * nv)
+    if cfg.split.startswith("sl"):
+        # split last: once, on the original graphs' top-level labels
+        labels = split_labels_tile(Ctop, adj0, mode=mode,
+                                   max_iters=cfg.split_max_iters
+                                   ).view(b * nv) + base
+        split_moved += torch.sum(((labels != top) & node_mask).view(b, nv),
+                                 dim=1).cpu().numpy()
+        top = seg.renumber_tile(labels, node_mask, b)[0]
+    elif refine:
+        top, moved = _split_unconnected_tile(adj0, top, node_mask)
+        split_moved += moved
+    Ctop = (top - base).view(b, nv)
     n_final = seg.count_communities_tile(top, node_mask, b).tolist()
     stats = [dict(passes=int(passes[g]), li_last=int(li_last[g]),
                   li_total=int(li_total[g]), split_moved=int(split_moved[g]),

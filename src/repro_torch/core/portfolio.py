@@ -16,8 +16,8 @@ One dispatch over the tiers of ``DetectOptions.algorithm``, each with the
                    reference omits (ROADMAP C.7).
 
 :func:`run_detection_tile` is :func:`run_detection` for several graphs
-of one bucket at once, the batched engine's tile (the standard tier,
-``split='sp-pj'``, the dense scan; :func:`tile_route`).
+of one bucket at once, the batched engine's tile (the fast tier, and the
+standard and max-quality tiers on the dense scan; :func:`tile_route`).
 
 Stats are the same five Python ints for every tier (passes / li_last /
 li_total / split_moved / n_communities); the sharded route adds
@@ -42,9 +42,9 @@ from repro_torch.core import _segments as seg
 from repro_torch.core.detect import disconnected_communities
 from repro_torch.core.louvain import (LouvainConfig, _Clock, louvain_impl,
                                       louvain_tile)
-from repro_torch.core.lpa import lpa_run
-from repro_torch.core.modularity import modularity
-from repro_torch.graph.container import stack_graphs, strip_padding
+from repro_torch.core.lpa import lpa_run, lpa_run_tile
+from repro_torch.core.modularity import modularity, modularity_tile
+from repro_torch.graph.container import stack_graphs, strip_padding, union_of
 
 ALGORITHMS = ("fast", "standard", "max-quality")
 
@@ -216,36 +216,81 @@ def run_detection(graph, options, *, phase_seconds=None, telemetry=None):
 
 def tile_route(options, nv: int, m_cap: int, device_type: str) -> bool:
     """Whether a batch of this shape and these options takes the engine's
-    tile (:func:`run_detection_tile`): the standard tier with
-    ``split='sp-pj'`` on the dense scan, without a mesh.  The other tiers,
-    splits and the sortscan run one graph at a time
-    (:func:`run_detection`)."""
-    return (options.algorithm == "standard" and options.mesh is None
-            and options.louvain.split == "sp-pj"
-            and options.resolved_scan(nv, m_cap,
-                                      device_type=device_type) == "dense")
+    tile (:func:`run_detection_tile`), without a mesh: the fast tier at
+    every shape (LPA has no scan), and the standard tier with any split
+    and the max-quality tier on the dense scan.  Standard and max-quality
+    on the sortscan run one graph at a time (:func:`run_detection`)."""
+    if options.mesh is not None:
+        return False
+    return options.algorithm == "fast" or options.resolved_scan(
+        nv, m_cap, device_type=device_type) == "dense"
+
+
+def _pick_tile(u, refined, standard):
+    """:func:`_pick` of each graph of a tile: ``refined`` and ``standard``
+    are :func:`~repro_torch.core.louvain.louvain_tile`'s ``(C [b, nv],
+    stats)`` on the union ``u``.  Both candidates' Q come from
+    :func:`~repro_torch.core.modularity.modularity_tile` on the union's
+    live edges and are compared on the device, in float32, as ``_pick``
+    compares them; the choice comes to the host in one copy.  Returns
+    ``(C [b, nv], stats, Q float32 [b])``, the chosen candidate's."""
+    b, nv = u.b, u.nv
+    slot = torch.arange(b * nv, dtype=torch.int32, device=u.src.device)
+    base = slot - torch.remainder(slot, nv)
+    q_r, q_s = (modularity_tile(u.src, u.dst, u.w, C.view(b * nv) + base,
+                                u.counts)
+                for C in (refined[0], standard[0]))
+    take_r = q_r >= q_s
+    C = torch.where(take_r[:, None], refined[0], standard[0])
+    q = torch.where(take_r, q_r, q_s)
+    pick = take_r.cpu().tolist()
+    stats = [(refined if r else standard)[1][g] for g, r in enumerate(pick)]
+    return C, stats, q
+
+
+def _partition_tile(stacked, u, options):
+    """:func:`partition` of each graph of a tile on its union ``u``:
+    ``(C [b, nv] local ids, stats, Q float32 [b] or None)``; max-quality
+    returns its chosen candidate's Q, which its pick computed."""
+    algorithm = options.algorithm
+    if algorithm == "fast":
+        C, rounds, n_comms, _ = lpa_run_tile(stacked, union=u)
+        return C, [dict(passes=1, li_last=int(r), li_total=int(r),
+                        split_moved=0, n_communities=int(n))
+                   for r, n in zip(rounds, n_comms.tolist())], None
+    cfg = options.louvain
+    if algorithm == "standard":
+        C, stats, _ = louvain_tile(stacked, cfg, union=u)
+        return C, stats, None
+    # max-quality: the refined candidate, the GSP one, the better of each
+    refined = louvain_tile(stacked, tier_config(algorithm, cfg), union=u)
+    standard = louvain_tile(stacked, _standard_config(cfg), union=u)
+    return _pick_tile(u, refined[:2], standard[:2])
 
 
 def run_detection_tile(graphs, options):
     """:func:`run_detection` of several same-capacity graphs at once, the
-    batched engine's tile (the reference's vmapped ``louvain_impl`` +
+    batched engine's tile (the reference's vmapped ``partition_impl`` +
     detector + modularity): one :class:`~repro_torch.core.api.Detection`
     a graph, each the bits of ``run_detection`` on it alone.
 
-    Only for what :func:`tile_route` accepts (raises otherwise): the pass
-    loop is :func:`~repro_torch.core.louvain.louvain_tile`, then the
-    detector and the modularity run once on the union of the graphs' live
-    edges, with one host copy for their counts and values."""
+    Only for what :func:`tile_route` accepts (raises otherwise): the
+    partition is :func:`~repro_torch.core.louvain.louvain_tile` (standard),
+    two of them and a per-graph pick (max-quality) or
+    :func:`~repro_torch.core.lpa.lpa_run_tile` (fast), all on one union
+    of the graphs' live edges; then the detector and the modularity run
+    once on that union, with one host copy for their counts and values."""
     from repro_torch.core.api import Detection
     from repro_torch.core.detect import disconnected_communities_tile
-    from repro_torch.core.modularity import modularity_tile
 
     stacked = stack_graphs(graphs)
     if not tile_route(options, stacked.nv, stacked.m_cap,
                       stacked.device.type):
-        raise ValueError("the tile runs the standard tier with "
-                         "split='sp-pj' on the dense scan, without a mesh")
-    C, stats, u = louvain_tile(stacked, options.louvain)
+        raise ValueError("the tile runs the fast tier, and the standard "
+                         "and max-quality tiers on the dense scan, without "
+                         "a mesh")
+    u = union_of(stacked)
+    C, stats, q = _partition_tile(stacked, u, options)
     b, nv = u.b, u.nv
     slot = torch.arange(b * nv, dtype=torch.int32, device=C.device)
     top = C.view(b * nv) + (slot - torch.remainder(slot, nv))
@@ -253,7 +298,8 @@ def run_detection_tile(graphs, options):
                   < stacked.n_nodes[:, None]).view(b * nv)
     det = disconnected_communities_tile(u.src, u.dst, u.w, top, node_valid,
                                         b)
-    q = modularity_tile(u.src, u.dst, u.w, top, u.counts)
+    if q is None:
+        q = modularity_tile(u.src, u.dst, u.w, top, u.counts)
     n_disc = det["n_disconnected"].cpu().tolist()
     frac, q = torch.stack([det["fraction"], q]).cpu().tolist()
     contract = contract_for(options.algorithm)

@@ -9,26 +9,29 @@ kept per graph.  The port's pass and sweep loops are host loops with one
 sync a sweep (``core/local_move.py``), and a batch takes one of two
 routes (``DispatchInfo.route``):
 
-* ``"tile"``, the reference's lane-parallel batch, for the standard tier
-  with ``split='sp-pj'`` on the dense scan (every default bucket on the
-  card) at ``sub_batch > 1``.  The batch is cut into tiles of at most
-  ``sub_batch`` graphs, and each tile runs
-  :func:`~repro_torch.core.portfolio.run_detection_tile`: the live edges
-  of its graphs as one union (``graph/container.py:GraphUnion``) and one
-  pass loop for all (``core/louvain.py:louvain_tile``), so a sweep is one
-  set of launches and one host read for the tile.  Each graph keeps its
-  own pass count, place on the ``tau`` ladder, sweep loop state (``dQ``,
-  productive sweeps, best labels, Sigma and Q, awake set) and
-  convergence: a graph that converges stops moving and keeps its state,
-  and a graph whose pass loop is done leaves the union at the next
-  aggregation.  A tile needs no fixed width, so the last one holds what
-  is left and no filler graph runs.  A tile of one graph is
-  ``run_detection`` of that graph.
-* ``"loop"``, for the fast and max-quality tiers, any other split, the
-  sortscan, ``sub_batch = 1`` and :meth:`BatchedLouvainEngine.update_batch`:
-  each graph runs :func:`~repro_torch.core.portfolio.run_detection` (or
-  ``warm_update``), the body of ``detect()``, one after another (ROADMAP
-  A.8 option (a); the next batched routes are queued there).
+* ``"tile"``, the reference's lane-parallel batch, at ``sub_batch > 1``
+  for every tier on the card's default buckets: the fast tier at every
+  bucket, and the standard tier (any split) and the max-quality tier on
+  the dense scan (:func:`~repro_torch.core.portfolio.tile_route`).  The
+  batch is cut into tiles of at most ``sub_batch`` graphs, and each tile
+  runs :func:`~repro_torch.core.portfolio.run_detection_tile` on the live
+  edges of its graphs as one union (``graph/container.py:GraphUnion``):
+  one pass loop for all (``core/louvain.py:louvain_tile``; max-quality
+  runs two, refinement on the union in the split slot, then picks per
+  graph) or one LPA round loop (``core/lpa.py:lpa_run_tile``), so a
+  sweep or a round is one set of launches and one host read for the
+  tile.  Each graph keeps its own pass count, place on the ``tau``
+  ladder, sweep or round loop state and convergence: a graph that
+  converges stops moving and keeps its state, and a graph whose pass
+  loop is done leaves the union at the next aggregation.  A tile needs
+  no fixed width, so the last one holds what is left and no filler graph
+  runs.  A tile of one graph is ``run_detection`` of that graph.
+* ``"loop"`` for what stays one graph at a time: standard and
+  max-quality on the sortscan, ``sub_batch = 1``, and
+  :meth:`BatchedLouvainEngine.update_batch`: each graph runs
+  :func:`~repro_torch.core.portfolio.run_detection` (or ``warm_update``),
+  the body of ``detect()``, one after another (ROADMAP A.8 option (a);
+  A.15 queues the rest of the batched routes).
 
 Either way every result equals ``detect()`` of the same graph, bit for
 bit.  Results come back as numpy on the host, as the reference's do.

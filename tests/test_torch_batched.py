@@ -316,18 +316,29 @@ def test_tile_of_the_six_families(sync, prune):
 
 
 def test_tile_refuses_what_it_does_not_run():
+    """The tile runs every tier and split on the dense scan and the fast
+    tier at every shape; standard and max-quality on the sortscan, and
+    any mesh, stay off it."""
     graphs = _pool(2)
-    for opts in (DetectOptions(scan="dense", algorithm="fast"),
-                 DetectOptions(scan="dense", algorithm="max-quality"),
-                 DetectOptions(scan="sort"),
-                 DetectOptions(scan="dense",
-                               louvain=LouvainConfig(split="refine"))):
-        assert not tile_route(opts, graphs[0].nv, graphs[0].m_cap, "cpu")
+    nv, m_cap = graphs[0].nv, graphs[0].m_cap
+    for opts in (DetectOptions(scan="sort"),
+                 DetectOptions(scan="sort", algorithm="max-quality"),
+                 DetectOptions(scan="dense", mesh=2),
+                 DetectOptions(scan="sort", algorithm="fast", mesh=2)):
+        assert not tile_route(opts, nv, m_cap, "cpu")
         with pytest.raises(ValueError, match="the tile runs"):
             run_detection_tile(graphs, opts)
-    with pytest.raises(ValueError, match="sp-pj"):
-        louvain_tile(stack_graphs(graphs), LouvainConfig(split="sp-lp"))
-    assert tile_route(STANDARD, graphs[0].nv, graphs[0].m_cap, "cpu")
+    for opts in (STANDARD, DetectOptions(scan="dense", algorithm="fast"),
+                 DetectOptions(scan="sort", algorithm="fast"),
+                 DetectOptions(scan="dense", algorithm="max-quality"),
+                 DetectOptions(scan="dense",
+                               louvain=LouvainConfig(split="refine"))):
+        assert tile_route(opts, nv, m_cap, "cpu"), opts
+    C, stats, _ = louvain_tile(stack_graphs(graphs),
+                               LouvainConfig(split="sp-lp"))
+    assert [s["passes"] for s in stats] == [
+        louvain_impl(g, LouvainConfig(split="sp-lp"), scan="dense")[1][
+            "passes"] for g in graphs]
 
 
 # ---------------------------------------------------------------------------
@@ -376,21 +387,23 @@ def test_engine_routes_and_keys():
                                algorithms=("standard", "fast"))
     assert BatchedLouvainEngine(device="cpu").sub_batch == 1
     assert eng.route_for(b) == "tile"
-    assert eng.route_for(b, "fast") == "loop"
-    assert eng.route_for(b, "max-quality") == "loop"
+    assert eng.route_for(b, "fast") == "tile"
+    assert eng.route_for(b, "max-quality") == "tile"
     assert eng.route_for(Bucket(256, 1024)) == "loop"        # the sortscan
+    assert eng.route_for(Bucket(256, 1024), "max-quality") == "loop"
+    assert eng.route_for(Bucket(256, 1024), "fast") == "tile"
     assert BatchedLouvainEngine(device="cpu", sub_batch=1).route_for(b) \
         == "loop"
     assert eng._detect_key(b)[:2] == (b, 4)
     assert eng.warm(b) == 2
     info = eng.last_detect_info
-    assert (info.n, info.capacity, info.route) == (4, 4, "loop")
+    assert (info.n, info.capacity, info.route) == (4, 4, "tile")
     graphs = _pool(3)
     eng.detect_batch(graphs)
     info = eng.last_detect_info
     assert info.compile_hit and info.route == "tile" and info.fill == 0.75
     eng.detect_batch(graphs, algorithm="fast")
-    assert eng.last_detect_info.route == "loop"
+    assert eng.last_detect_info.route == "tile"
     nv = graphs[0].nv
     eng.update_batch([(graphs[0], np.arange(nv, dtype=np.int32),
                        np.zeros(nv, bool))])

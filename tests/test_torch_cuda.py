@@ -1386,9 +1386,17 @@ def _tile_graphs(dev, graphs, nv=None):
     limit (a sparse random graph a seed)."""
     from repro_torch.graph import from_undirected
 
-    if nv is None:
-        return [sbm_graph(1024, 16, 0.2, 0.003, seed=3 + s, n_cap=1024,
-                          m_cap=16384, device=dev)[0] for s in range(graphs)]
+    if nv is None:      # the seeds from 3 whose edges fit the bucket
+        out, seed = [], 3
+        while len(out) < graphs:
+            try:
+                out.append(sbm_graph(1024, 16, 0.2, 0.003, seed=seed,
+                                     n_cap=1024, m_cap=16384,
+                                     device=dev)[0])
+            except ValueError:      # more directed edges than m_cap
+                pass
+            seed += 1
+        return out
     out = []
     for s in range(graphs):
         rng = np.random.default_rng(s)
@@ -1457,11 +1465,57 @@ def test_tile_dense_kernels_equal_batched_plain(cuda, graphs, past, variant):
         assert _same_bits(q[g], q_alone), g
 
 
+@pytest.mark.parametrize("graphs", [8, 32])
+def test_tile_dense_kernels_on_a_refinement_state(cuda, graphs):
+    """The dense kernels with a graph axis on a refinement's state (the
+    weights between communities zeroed, every edge kept, singletons, each
+    graph's own 2m): bit for bit against the batched plain versions on
+    the card, and each graph's slice against its ``b = 1`` launch."""
+    from _torch_tile_cases import tile_state
+
+    from repro_torch.core.local_move import (_half_sweep_dense,
+                                             _half_sweep_dense_plain,
+                                             realized_modularity_tile)
+    from repro_torch.kernels.dense_sweep import dense_modularity_cuda
+
+    lone, union, u = tile_state(_tile_graphs(cuda, graphs), seed=graphs,
+                                refine=True)
+    src, dst, w, C, K, Sigma, two_m, movable, tok = union
+    assert bool((w == 0).any()) and torch.equal(
+        C, torch.arange(C.shape[0], dtype=torch.int32, device=cuda))
+    eptr = torch.tensor(u.edge_offsets, dtype=torch.int32, device=cuda)
+    nv = u.nv
+    for target, anchored in ((True, True), (False, False)):
+        kw = dict(target_ok=tok if target else None, anchored=anchored)
+        got = _half_sweep_dense(src, dst, w, C, K, Sigma, two_m, movable,
+                                graphs=graphs, **kw)
+        plain = _half_sweep_dense_plain(src, dst, w, C, K, Sigma, two_m,
+                                        movable, graphs=graphs, **kw)
+        for i in (0, 1, 2, 4):
+            assert _same_bits(got[i], plain[i]), (target, i)
+        q = dense_modularity_cuda(src, dst, w, got[0], got[1], two_m,
+                                  edge_counts=u.counts, edge_ptr=eptr)
+        assert _same_bits(q, realized_modularity_tile(
+            src, dst, w, got[0], got[1], two_m, u.counts))
+        for g, a in enumerate(lone):
+            sl = slice(g * nv, (g + 1) * nv)
+            alone = _half_sweep_dense(*a[:8], target_ok=a[8] if target
+                                      else None, anchored=anchored)
+            assert _same_bits(got[0][sl] - g * nv, alone[0]), g
+            for i in (1, 2, 4):
+                assert _same_bits(got[i][sl], alone[i]), (g, i)
+
+
+TILE_TIERS = ("standard", "max-quality", "fast")
+
+
+@pytest.mark.parametrize("algorithm", TILE_TIERS)
 @pytest.mark.parametrize("sub_batch", [2, 8, 32])
-def test_tile_on_card_equals_cpu(cuda, sub_batch):
-    """The engine's standard batch in tiles on the card against the
+def test_tile_on_card_equals_cpu(cuda, sub_batch, algorithm):
+    """The engine's batch of each tier in tiles on the card against the
     CPU's, and each result against ``detect()`` on the card; the tile's
-    B.1 and dense launches fewer than the loop's."""
+    B.1 launches fewer than the loop's, its dense launches too for the
+    Louvain tiers (LPA launches none)."""
     from repro_torch.core import DetectOptions, detect
     from repro_torch.kernels.dense_sweep import kernel_launches
     from repro_torch.kernels.segsum import segreduce_sorted_cuda
@@ -1471,7 +1525,7 @@ def test_tile_on_card_equals_cpu(cuda, sub_batch):
     graphs = [admit(sbm_graph(56, 4, 0.7, 0.08, seed=s, device="cpu")[0],
                     [Bucket(64, 2048)])[0] for s in range(12)]
     cpu = BatchedLouvainEngine(device="cpu", sub_batch=sub_batch)
-    want = cpu.detect_batch(graphs)
+    want = cpu.detect_batch(graphs, algorithm=algorithm)
     eng = BatchedLouvainEngine(sub_batch=sub_batch)
     card = [g.to(cuda) for g in graphs]
 
@@ -1480,13 +1534,18 @@ def test_tile_on_card_equals_cpu(cuda, sub_batch):
         out = fn()
         torch.cuda.synchronize()
         dense = sum(n - dense0[k] for k, n in kernel_launches().items())
-        return out, segreduce_sorted_cuda.launches - seg0 + dense
+        return out, (segreduce_sorted_cuda.launches - seg0, dense)
 
-    got, n_tile = launches(lambda: eng.detect_batch(card))
+    got, n_tile = launches(lambda: eng.detect_batch(card,
+                                                    algorithm=algorithm))
     assert eng.last_detect_info.route == "tile"
-    dets, n_loop = launches(lambda: [detect(g, options=DetectOptions())
-                                     for g in card])
-    assert n_tile < n_loop, (n_tile, n_loop)
+    opts = DetectOptions(algorithm=algorithm)
+    dets, n_loop = launches(lambda: [detect(g, options=opts) for g in card])
+    assert n_tile[0] < n_loop[0], (n_tile, n_loop)
+    if algorithm == "fast":
+        assert n_tile[1] == n_loop[1] == 0, (n_tile, n_loop)
+    else:
+        assert n_tile[1] < n_loop[1], (n_tile, n_loop)
     for a, b, d in zip(got, want, dets):
         np.testing.assert_array_equal(a.C, b.C)
         np.testing.assert_array_equal(a.C, d.labels.cpu().numpy())
@@ -1494,7 +1553,8 @@ def test_tile_on_card_equals_cpu(cuda, sub_batch):
                 a.sweeps, a.split_moved, a.q) == (
             b.n_communities, b.n_disconnected, b.fraction, b.passes,
             b.sweeps, b.split_moved, b.q)
-        assert a.q == d.modularity and a.n_disconnected == 0
+        assert a.q == d.modularity
+        assert algorithm == "fast" or a.n_disconnected == 0
 
 
 # ---------------------------------------------------------------------------
