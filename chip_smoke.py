@@ -119,11 +119,19 @@ result line):
    family's sweep and refinement states, every output bit for bit, and
    each graph's slice against its ``b = 1`` launch.
    Phase 3 makes the same check on its family at ``b = 8`` and times
-   both kernels at ``b`` 8 and 32.  Then, on the large bucket, 32
-   churn items (phase 3's 16 removals, 8 additions, 64 deletions, 32
-   insertions) prepared by ``ResultStore.prepare_update`` from the
-   standard labels go through ``update_batch``, and must equal, bit for
-   bit, 32 immediate ``ResultStore.apply_update`` calls on a second store.
+   both kernels at ``b`` 8 and 32.  Then each family's 32 churn items
+   (on the large bucket phase 3's 16 removals, 8 additions, 64 deletions
+   and 32 insertions a graph; on the ego-nets 2, 2, 8 and 4; an item
+   whose churn does not fit its bucket is skipped and printed), prepared
+   by ``ResultStore.prepare_update`` from the standard labels, go through
+   ``update_batch`` at ``sub_batch`` 1 (the loop), 8 and 32 (the tile,
+   ``warm_update_tile``), each batch from a fresh store, and must equal,
+   bit for bit, the immediate ``ResultStore.apply_update`` of the same
+   items on a second store (graph, labels, counts, Q and version), with
+   0 disconnected; the tiles launch fewer segment reduces and dense
+   kernels than the loop.  Each batch prints its wall, graphs/s,
+   launches, sweeps and affected vertices (``--profile``: one traced
+   batch's device busy share).
 
 7. The timeline, the checkpoint and the degraded tier, on the card
    (``repro_torch.timeline``, ``checkpoint``, ``resilience``).  At full
@@ -270,7 +278,8 @@ result line):
 kernel's total), in phase
 5, three traced calls of each ``segsum``, ``cumsum`` and ``spmm`` case
 (device time a call by kernel), and in phase 6 one traced standard batch
-of each bucket (CUDA kernel launches and the device's busy share), and in
+of each bucket and each width's tiles and update batches (CUDA kernel
+launches and the device's busy share), and in
 phase 8 the traced replay at 60/s (the device's busy share).  The
 second-to-last lines are one JSON object for the kernels (``kernels``) and the card line; the last
 line is the result object.
@@ -1907,15 +1916,20 @@ def same_as_detect(r, d) -> bool:
 
 
 def traced_batch(engine, graphs, algorithm):
-    """One traced batch: CUDA kernel launches (runtime launch calls) and
-    the device's busy share of the wall time."""
+    """One traced detect batch: :func:`traced`."""
+    return traced(lambda: engine.detect_batch(graphs, algorithm=algorithm))
+
+
+def traced(fn):
+    """``fn()`` once under the profiler: ``(wall seconds, CUDA kernel
+    launches (runtime launch calls), device busy seconds)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.detect_batch(graphs, algorithm=algorithm)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -1932,12 +1946,11 @@ def engine_phase(profile=False) -> tuple[dict, object, dict]:
     Returns the segment-reduce launches by path, the engine and each
     family's standard batch wall seconds (phase 8 compares the front end
     with them)."""
-    import numpy as np
     import torch
 
     from repro_torch.core import DetectOptions, detect
     from repro_torch.core.portfolio import ALGORITHMS
-    from repro_torch.service import BatchedLouvainEngine, ResultStore
+    from repro_torch.service import BatchedLouvainEngine
 
     engine = BatchedLouvainEngine(algorithms=ALGORITHMS)
     launches = {}
@@ -2000,51 +2013,137 @@ def engine_phase(profile=False) -> tuple[dict, object, dict]:
                 f"sweep)  device busy={busy} s ({100 * busy / wall} %)")
     launches.update(tile_widths(fams, loops, profile))
 
-    # the warm updates: 32 churn items on the large bucket, batched through
-    # the engine against 32 immediate updates on a second store
-    name, bucket, graphs = fams[0]
-    batched, immediate = ResultStore(), ResultStore()
-    ids = [f"g{i}" for i in range(len(graphs))]
-    for gid, g, r in zip(ids, graphs, standard[name]):
-        for store in (batched, immediate):
-            store.put(gid, g, r.C, n_communities=r.n_communities,
-                      n_disconnected=r.n_disconnected, q=r.q)
-    upds = [churn_batch(g, seed=100 + i, remove=16, add=8, delete=64,
-                        insert=32)[0] for i, g in enumerate(graphs)]
-    t0 = time.perf_counter()
-    plans = [batched.prepare_update(gid, u) for gid, u in zip(ids, upds)]
-    torch.cuda.synchronize()
-    t_prep = time.perf_counter() - t0
-    items = [(p.graph, p.C_prev, p.touched) for p in plans]
-    res, wall, n_seg, peak = timed_path(lambda: engine.update_batch(items))
-    for p, r in zip(plans, res):
-        batched.commit_update(p, C=r.C, n_communities=r.n_communities,
-                              n_disconnected=r.n_disconnected, q=r.q)
-    _, wall_imm, n_imm, _ = timed_path(lambda: [
-        immediate.apply_update(gid, u) for gid, u in zip(ids, upds)])
-    equal = True
-    for gid in ids:
-        a, b = batched.get(gid), immediate.get(gid)
-        equal &= (np.array_equal(a.C, b.C) and a.q == b.q
-                  and (a.version, a.n_communities, a.n_disconnected)
-                  == (b.version, b.n_communities, b.n_disconnected)
-                  and all(torch.equal(getattr(a.graph, k),
-                                      getattr(b.graph, k))
-                          for k in ("src", "dst", "w", "n_nodes")))
-    sweeps = sum(r.iterations for r in res)
-    n_disc = sum(r.n_disconnected for r in res)
-    log(f"  update_batch, {name}: equal to immediate apply_update (graph, "
-        f"labels, counts, Q bits)={equal}  host prepare={t_prep} s  batch "
-        f"wall={wall} s ({len(res) / wall} graphs/s)  immediate (prepare "
-        f"included)={wall_imm} s  segreduce launches a batch={n_seg} "
-        f"(immediate {n_imm})  sweeps a batch={sweeps}  wall ms a sweep="
-        f"{1e3 * wall / max(sweeps, 1)}  affected="
-        f"{sum(r.n_affected for r in res)}  disconnected={n_disc}")
-    if not equal or n_disc:
-        raise AssertionError(f"update_batch: equal={equal}, {n_disc} "
-                             "disconnected")
-    launches[f"engine update_batch, {name}"] = n_seg
+    launches.update(update_widths(fams, standard, profile))
     return launches, engine, walls
+
+
+# each family's churn: (remove, add, delete, insert) a graph, scaled to
+# its bucket
+UPDATE_CHURN = ((16, 8, 64, 32), (2, 2, 8, 4))
+# the update batches' widths (width 1 is the loop route)
+UPDATE_WIDTHS = (1, 8, 32)
+
+
+def same_entries(a, b, ids) -> bool:
+    """Two stores' entries of ``ids``: graph, labels, counts, Q bits and
+    version."""
+    import numpy as np
+    import torch
+
+    ok = True
+    for gid in ids:
+        x, y = a.get(gid), b.get(gid)
+        ok &= (np.array_equal(x.C, y.C) and x.q == y.q
+               and (x.version, x.n_communities, x.n_disconnected)
+               == (y.version, y.n_communities, y.n_disconnected)
+               and all(torch.equal(getattr(x.graph, k), getattr(y.graph, k))
+                       for k in ("src", "dst", "w", "n_nodes")))
+    return ok
+
+
+def update_widths(fams, standard, profile) -> dict:
+    """Phase 6's warm updates: each family's 32 churn items
+    (:data:`UPDATE_CHURN`; an item whose churn does not fit the bucket is
+    skipped and printed) through ``update_batch`` at each of
+    :data:`UPDATE_WIDTHS` (1 the loop route, the others the tile,
+    ``core/dynamic.py:warm_update_tile``), each from a fresh store at the
+    standard batch's labels, against the same items through a second
+    store's immediate ``apply_update``: graph, labels, counts, Q bits and
+    version equal, nothing disconnected.  A tile launches fewer segment
+    reduces and dense kernels than the loop.  Prints each batch's wall,
+    graphs/s, launches, sweeps and affected vertices, and under
+    ``--profile`` one traced batch's device busy share.  Returns the
+    launches by path."""
+    import torch
+
+    from repro_torch.service import BatchedLouvainEngine, ResultStore
+    from repro_torch.service.store import CapacityExceeded
+
+    out = {}
+    for (name, bucket, graphs), churn in zip(fams, UPDATE_CHURN):
+        entries = {f"g{i}": e for i, e in enumerate(zip(graphs,
+                                                        standard[name]))}
+
+        def store(ids):
+            st = ResultStore()
+            for gid in ids:
+                g, r = entries[gid]
+                st.put(gid, g, r.C, n_communities=r.n_communities,
+                       n_disconnected=r.n_disconnected, q=r.q)
+            return st
+
+        immediate = store(entries)
+        upds, skipped = {}, []
+        for i, (gid, (g, _)) in enumerate(entries.items()):
+            try:
+                upd = churn_batch(g, seed=100 + i, remove=churn[0],
+                                  add=churn[1], delete=churn[2],
+                                  insert=churn[3])[0]
+                immediate.prepare_update(gid, upd)  # pure: a capacity test
+            except (ValueError, AssertionError, CapacityExceeded) as e:
+                skipped.append((100 + i, type(e).__name__))
+                continue
+            upds[gid] = upd
+        ids = list(upds)
+        _, wall_imm, n_imm, _ = timed_path(lambda: [
+            immediate.apply_update(gid, upds[gid]) for gid in ids])
+        log(f"  update_batch, {name}: {len(ids)} churn items (remove, add, "
+            f"delete, insert)={churn} a graph, seeds skipped (did not fit "
+            f"the bucket)={skipped}  immediate apply_update (prepare "
+            f"included)={wall_imm} s  segreduce launches={n_imm}")
+        loop = None
+        for width in UPDATE_WIDTHS:
+            eng = BatchedLouvainEngine(sub_batch=width)
+            eng.warm_updates(bucket)
+            batched = store(ids)
+            t0 = time.perf_counter()
+            plans = [batched.prepare_update(gid, upds[gid]) for gid in ids]
+            torch.cuda.synchronize()
+            t_prep = time.perf_counter() - t0
+            items = [(p.graph, p.C_prev, p.touched) for p in plans]
+            (res, n_dense), wall, n_seg, peak = timed_path(
+                lambda: dense_counted(lambda: eng.update_batch(items)))
+            info = eng.last_update_info
+            for p, r in zip(plans, res):
+                batched.commit_update(p, C=r.C,
+                                      n_communities=r.n_communities,
+                                      n_disconnected=r.n_disconnected,
+                                      q=r.q)
+            equal = same_entries(batched, immediate, ids)
+            sweeps = sum(r.iterations for r in res)
+            n_disc = sum(r.n_disconnected for r in res)
+            route = "loop" if width == 1 else "tile"
+            if loop is None:
+                loop = (wall, n_seg, n_dense)
+            log(f"    update_batch sub_batch={width} ({info.route}, "
+                f"{-(-len(ids) // width)} tiles, fill={info.fill}): equal "
+                f"to immediate apply_update (graph, labels, counts, Q bits, "
+                f"version)={equal}  host prepare={t_prep} s  batch wall="
+                f"{wall} s ({len(res) / wall} graphs/s)  loop/batch="
+                f"{loop[0] / wall}  segreduce launches a batch={n_seg} (loop "
+                f"{loop[1]})  dense kernel launches a batch={n_dense} (loop "
+                f"{loop[2]})  sweeps a batch={sweeps}  affected="
+                f"{sum(r.n_affected for r in res)}  disconnected={n_disc}  "
+                f"peak device memory={peak:.3f} GiB")
+            ok = info.route == route and equal and n_disc == 0
+            if route == "tile":
+                ok &= n_seg < loop[1] and n_dense < loop[2]
+            if not ok:
+                raise AssertionError(
+                    f"update_batch sub_batch={width} on {name}: route="
+                    f"{info.route} equal={equal} launches {n_seg}/{n_dense} "
+                    f"against the loop's {loop[1]}/{loop[2]}, {n_disc} "
+                    "disconnected")
+            out[f"engine update_batch sub_batch={width}, {name}"] = n_seg
+            out[f"engine update_batch sub_batch={width} dense kernels, "
+                f"{name}"] = n_dense
+            if profile:
+                t_wall, n_launch, busy = traced(
+                    lambda: eng.update_batch(items))
+                log(f"      traced: wall={t_wall} s  CUDA kernel launches="
+                    f"{n_launch}  device busy={busy} s "
+                    f"({100 * busy / t_wall} %)")
+    return out
 
 
 def dense_counted(fn):
@@ -2758,6 +2857,7 @@ def frontend_sync_step() -> dict:
         lambda: sync_traffic(svc8))
     launches["front end sync mix (update_batch_size=8)"] = n8
     rep8 = svc8.metrics.report()
+    info8 = svc8.engine.last_update_info
     gids = svc.store.graph_ids()
     same = (sorted(gids) == sorted(svc8.store.graph_ids())
             and all(same_entry(svc.result(g), svc8.result(g))
@@ -2767,7 +2867,9 @@ def frontend_sync_step() -> dict:
     log(f"  8.1 the same traffic, update_batch_size=8: {rep8['n_update']} "
         f"updates in {rep8['n_update_batches']} batches, in {t_run8} s "
         f"(with the last sync {wall8} s)  every entry equal to "
-        f"update_batch_size=1's={same}  segreduce launches={n8}")
+        f"update_batch_size=1's={same}  segreduce launches={n8}  last "
+        f"update batch: route={getattr(info8, 'route', None)} "
+        f"n={getattr(info8, 'n', None)}")
     log(f"    {report_line(rep8)}")
     log("    host ms a request by phase: " + "  ".join(
         f"{k}={v:.4f}" for k, v in host_ms_by_phase(dets8 + upds8).items()))

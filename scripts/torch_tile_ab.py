@@ -19,6 +19,14 @@ batch, the route, and a digest of every graph's labels, stats and Q
 ``sub_batch`` (before the tile) runs its one route and reports it as
 width ``"loop"``.  Walls are the host's clock around a synchronized
 call.
+
+``--updates`` times the engine's ``update_batch`` instead, keyed
+``"update <width>"``: each family's 32 churn items of ``chip_smoke.py``
+phase 6 (``churn_batch`` at ``UPDATE_CHURN``, from the standard labels of
+``detect_batch``; an item that does not fit its bucket is left out and
+listed), prepared once by a ``ResultStore`` and run after
+``warm_updates(bucket)``.  A tree whose ``update_batch`` has no tile runs
+the loop at every width, and the digests of the two trees must be equal.
 """
 from __future__ import annotations
 
@@ -96,6 +104,75 @@ def run_width(width, bucket, graphs, reps: int, tier: str) -> dict:
                 sweeps=sum(r.sweeps for r in res), digest=_digest(res))
 
 
+def _update_digest(results) -> str:
+    h = hashlib.sha256()
+    for r in results:
+        h.update(r.C.tobytes())
+        h.update(repr((r.n_communities, r.n_disconnected, r.fraction,
+                       r.iterations, r.q, r.n_affected,
+                       r.split_moved)).encode())
+    return h.hexdigest()[:16]
+
+
+def _chip_smoke():
+    """This checkout's ``chip_smoke.py`` (phase 6's churn)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def update_items(graphs, churn):
+    """``(items, skipped seeds)``: the churn items of ``graphs`` at their
+    standard labels, prepared by a store on the card."""
+    churn_batch = _chip_smoke().churn_batch
+
+    from repro_torch.service import BatchedLouvainEngine, ResultStore
+    from repro_torch.service.store import CapacityExceeded
+
+    labels = BatchedLouvainEngine(sub_batch=1).detect_batch(graphs)
+    store, items, skipped = ResultStore(), [], []
+    for i, (g, r) in enumerate(zip(graphs, labels)):
+        store.put(f"g{i}", g, r.C, n_communities=r.n_communities,
+                  n_disconnected=r.n_disconnected, q=r.q)
+        try:
+            upd = churn_batch(g, seed=100 + i, remove=churn[0], add=churn[1],
+                              delete=churn[2], insert=churn[3])[0]
+            p = store.prepare_update(f"g{i}", upd)
+        except (ValueError, AssertionError, CapacityExceeded):
+            skipped.append(100 + i)
+            continue
+        items.append((p.graph, p.C_prev, p.touched))
+    return items, skipped
+
+
+def run_updates(width, bucket, items, reps: int) -> dict:
+    import torch
+
+    from repro_torch.kernels.segsum import segreduce_sorted_cuda
+    from repro_torch.service import BatchedLouvainEngine
+
+    engine = BatchedLouvainEngine(sub_batch=width)
+    engine.warm_updates(bucket)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        segreduce_sorted_cuda.launches = 0
+        dense0 = _dense_launches()
+        t0 = time.perf_counter()
+        res = engine.update_batch(items)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        seg, dense = segreduce_sorted_cuda.launches, _dense_launches() - dense0
+    wall = statistics.median(walls)
+    info = engine.last_update_info
+    return dict(median_s=wall, walls_s=walls, graphs_per_s=len(items) / wall,
+                segreduce_launches=seg, dense_launches=dense,
+                route=getattr(info, "route", "loop"),
+                sweeps=sum(r.iterations for r in res),
+                affected=sum(r.n_affected for r in res),
+                digest=_update_digest(res))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
@@ -106,6 +183,8 @@ def main(argv=None) -> dict:
                     help="comma-separated tile widths")
     ap.add_argument("--tiers", default="standard",
                     help="comma-separated tiers")
+    ap.add_argument("--updates", action="store_true",
+                    help="time update_batch of the churn items instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
     import inspect
@@ -124,7 +203,14 @@ def main(argv=None) -> dict:
     widths = [int(w) for w in args.widths.split(",")] if tiled else ["loop"]
     rep = dict(label=args.label,
                package=str(Path(repro_torch.__file__).parent), batches={})
-    for name, bucket, graphs in families():
+    for i, (name, bucket, graphs) in enumerate(families()):
+        if args.updates:
+            items, skipped = update_items(graphs,
+                                          _chip_smoke().UPDATE_CHURN[i])
+            rep["batches"][name] = dict(skipped_seeds=skipped, **{
+                f"update {w}": run_updates(w, bucket, items, args.reps)
+                for w in widths})
+            continue
         rep["batches"][name] = {
             f"{tier} {w}": run_width(w, bucket, graphs, args.reps, tier)
             for tier in args.tiers.split(",") for w in widths}

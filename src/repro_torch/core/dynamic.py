@@ -36,8 +36,10 @@ any order.  :func:`update_communities` runs both halves.
 Of the reference's ``seg_impl`` values, :func:`warm_local_move` takes
 ``'auto'`` (the fused sweep) and ``'scatter'`` (the unfused one, the same
 bits); ``'xla'``, ``'pallas'`` and ``block_m`` have no counterpart, since
-dispatch is by device (``kernels/ops.py``).  Its jit/vmap batching of
-:func:`warm_update` comes with the batched engine (ROADMAP queue A, item 8).
+dispatch is by device (``kernels/ops.py``).  The reference engine's
+``jit(lax.map(vmap(warm_update_impl)))`` is :func:`warm_update_tile`, a
+tile of dense-scan graphs as one union that runs one warm sweep loop for
+all (``service/engine.py``).
 """
 from __future__ import annotations
 
@@ -48,14 +50,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import _segments as seg
-from repro_torch.core.detect import disconnected_communities
+from repro_torch.core.detect import (disconnected_communities,
+                                     disconnected_communities_tile)
 from repro_torch.core.local_move import (SYNC_PHASES, _move_loop,
-                                         dense_adjacency)
-from repro_torch.core.modularity import modularity
-from repro_torch.core.split import split_labels
+                                         dense_adjacency, local_move_tile,
+                                         tile_adjacency)
+from repro_torch.core.modularity import modularity, modularity_tile
+from repro_torch.core.split import split_labels, split_labels_tile
 from repro_torch.device import resolve_device
 from repro_torch.graph.container import (Graph, from_coo, remap_coo,
-                                         strip_padding)
+                                         stack_graphs, strip_padding,
+                                         union_ghosts, union_of)
 from repro_torch.kernels import ops
 
 
@@ -542,11 +547,21 @@ def affected_mask(g: Graph, C, touched) -> torch.Tensor:
     decreases: a decreased or removed intra-community edge re-evaluates
     both endpoints' communities in full.
     """
-    nv = g.nv
-    t = touched
-    nbr = _segment_any(t[g.src], g.dst, nv)
-    comm_touched = _segment_any(t, C, nv)
-    return t | nbr | comm_touched[C]
+    return affected_mask_edges(g.src, g.dst, C, touched)
+
+
+def affected_mask_edges(src, dst, C, touched) -> torch.Tensor:
+    """:func:`affected_mask` on bare edges, over ``C.shape[0]`` slots: a
+    padded COO, or a ``GraphUnion``'s live edges with ``C`` and
+    ``touched`` in its slots (each community in its own graph's slots).
+    The two reductions are int32 maxes, exact in any order, and no
+    segment crosses graphs, so each graph's slots get its own mask.  The
+    padding rows a union drops are ``ghost -> ghost``, which flag the
+    ghost only when it is touched itself."""
+    n = C.shape[0]
+    nbr = _segment_any(touched[src], dst, n)
+    comm_touched = _segment_any(touched, C, n)
+    return touched | nbr | comm_touched[C]
 
 
 def affected_vertices(g: Graph, C, touched) -> torch.Tensor:
@@ -620,6 +635,71 @@ def warm_update(g: Graph, C_prev, touched, *, tau=1e-3, max_iters: int = 10,
         n_affected=int(torch.sum(active0)),
         split_moved=int(torch.sum((labels != C) & node_mask)),
     )
+
+
+def warm_update_tile(graphs, C_prev, touched, *, tau=1e-3,
+                     max_iters: int = 10) -> list[dict]:
+    """:func:`warm_update` (``scan='dense'``) of ``b`` same-capacity graphs
+    at once, the batched engine's tile (the reference's vmapped
+    ``warm_update_impl``): one dict a graph with ``warm_update``'s keys
+    and types, each the bits of ``warm_update`` on its graph alone.
+
+    ``graphs``: a list of graphs, or a :func:`stack_graphs` result;
+    ``C_prev`` int32 and ``touched`` bool ``[b, nv]``.  The graphs' live
+    edges form one ``GraphUnion`` with ``C_prev`` shifted into its slots;
+    the screening runs there on ``C_prev`` as given, then each graph's
+    ghost slot is set for the sweep and Sigma0, as ``warm_update`` does.
+    2m folds each graph's padded ``w`` (``Graph.total_weight_2m``), K and
+    Sigma0 are the in-order folds of the lone path over the same elements,
+    and one :func:`tile_adjacency` serves the warm
+    :func:`~repro_torch.core.local_move.local_move_tile`, the split and
+    the detector.  Every per-graph count and value comes to the host in
+    one copy at the end; the labels stay on the graphs' device."""
+    stacked = graphs if isinstance(graphs, Graph) else stack_graphs(graphs)
+    b, nv, dev = stacked.src.shape[0], stacked.nv, stacked.device
+    n = b * nv
+    u = union_of(stacked)
+    slot = torch.arange(n, dtype=torch.int32, device=dev)
+    base = slot - torch.remainder(slot, nv)
+    C_u = torch.as_tensor(C_prev, device=dev).to(torch.int32).reshape(n) \
+        + base
+    t_u = torch.as_tensor(touched, device=dev).to(torch.bool).reshape(n)
+    active0 = affected_mask_edges(u.src, u.dst, C_u, t_u)
+    # 2m over each graph's padded edges, as Graph.total_weight_2m
+    two_m = ops.sum_inorder_per_graph(stacked.w.reshape(-1),
+                                      (stacked.m_cap,) * b)
+    K = ops.segreduce_sorted(u.w, u.src, n, op="sum")
+    C0 = C_u.clone()
+    ghosts = union_ghosts(b, nv, dev)
+    C0[ghosts.long()] = ghosts
+    Sigma0 = ops.segment_sum_inorder(K, C0, n)
+    adj = tile_adjacency(u.src, u.dst, b, nv)
+    C, _, _, sweeps = local_move_tile(
+        u.src, u.dst, u.w, C0, K, Sigma0, two_m, counts=u.counts, tau=tau,
+        max_iters=max_iters, sync="handshake", adj=adj, active0=active0,
+        warm=True)
+    labels = split_labels_tile((C - base).view(b, nv), adj, mode="pj"
+                               ).view(n) + base
+    node_mask = (torch.arange(nv, device=dev)[None, :]
+                 < stacked.n_nodes[:, None]).view(n)
+    C_new, n_comms = seg.renumber_tile(labels, node_mask, b)
+    det = disconnected_communities_tile(u.src, u.dst, u.w, C_new, node_mask,
+                                        b)
+    q = modularity_tile(u.src, u.dst, u.w, C_new, u.counts)
+    moved = ((labels != C) & node_mask).view(b, nv)
+    # the per-graph numbers in one copy: int32, the floats by their bits
+    host = torch.stack([
+        n_comms.to(torch.int32), det["n_disconnected"].to(torch.int32),
+        torch.sum(active0.view(b, nv), dim=1).to(torch.int32),
+        torch.sum(moved, dim=1).to(torch.int32),
+        det["fraction"].view(torch.int32), q.view(torch.int32)]).cpu().numpy()
+    frac, q = host[4:].view(np.float32)
+    C_local = (C_new - base).view(b, nv)
+    return [dict(C=C_local[g], n_communities=int(host[0, g]),
+                 n_disconnected=int(host[1, g]), fraction=float(frac[g]),
+                 q=float(q[g]), iterations=int(sweeps[g]),
+                 n_affected=int(host[2, g]), split_moved=int(host[3, g]))
+            for g in range(b)]
 
 
 def update_communities(g_old, C_prev, updates, *, tau=1e-3,

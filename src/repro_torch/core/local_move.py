@@ -692,7 +692,8 @@ def realized_modularity_tile(src, dst, w, C, Sigma, two_m, counts):
 
 def local_move_tile(src, dst, w, C0, K, Sigma0, two_m, *, counts, tau,
                     max_iters: int = 20, sync: str = "handshake",
-                    prune: bool = True, adj=None):
+                    prune: bool = True, adj=None, active0=None,
+                    warm: bool = False):
     """:func:`local_move` (dense scan) of the ``b = len(counts)`` graphs of
     a tile at once: one set of launches and one host read a sweep.
     Returns ``(C, Sigma, l_i, sweeps)``, ``l_i`` and ``sweeps`` int64
@@ -709,7 +710,14 @@ def local_move_tile(src, dst, w, C0, K, Sigma0, two_m, *, counts, tau,
     changes state, and its result is the state at its own convergence, as
     a vmapped ``while_loop`` selects it.  So each graph's outputs are the
     bits of :func:`local_move` on it alone.  The sweep's gains come to the
-    host in one ``[b]`` copy."""
+    host in one ``[b]`` copy.
+
+    ``active0`` (bool ``[b * nv]``, default all awake) and ``warm`` give
+    each graph the warm start of ``core/dynamic.py:warm_local_move``: the
+    awake set starts at ``active0``, and with ``warm`` a vertex stays
+    awake only while a neighbour moved or it is still awake and wants a
+    move, as :func:`_move_loop` keeps it; the outputs are then the bits
+    of ``warm_local_move`` on each graph alone."""
     if sync not in SYNC_PHASES:
         raise ValueError(f"unknown sync mode {sync!r}")
     b = len(counts)
@@ -738,7 +746,8 @@ def local_move_tile(src, dst, w, C0, K, Sigma0, two_m, *, counts, tau,
     ghosts = union_ghosts(b, nv, dev)
     C[ghosts.long()] = ghosts
     Sigma = Sigma0
-    active = torch.ones(n, dtype=torch.bool, device=dev)
+    active = (torch.ones(n, dtype=torch.bool, device=dev) if active0 is None
+              else active0)
     q_prev = realized(C, Sigma)
     C_best, Sigma_best, q_best = C, Sigma, q_prev
     dQ_iter = np.full(b, np.inf, np.float32)
@@ -762,7 +771,9 @@ def local_move_tile(src, dst, w, C0, K, Sigma0, two_m, *, counts, tau,
             moved_any = moved if moved_any is None else moved_any | moved
         q_now = realized(C, Sigma)
         if prune:
-            active = wake_neighbours_tile(moved_any, adj) | want
+            # schedule-blocked desire stays awake, as in _move_loop
+            active = wake_neighbours_tile(moved_any, adj) | (
+                (want & active) if warm else want)
         else:
             active = torch.ones(n, dtype=torch.bool, device=dev)
         better = q_now > q_best

@@ -12,29 +12,34 @@ routes (``DispatchInfo.route``):
 * ``"tile"``, the reference's lane-parallel batch, at ``sub_batch > 1``
   for every tier on the card's default buckets: the fast tier at every
   bucket, and the standard tier (any split) and the max-quality tier on
-  the dense scan (:func:`~repro_torch.core.portfolio.tile_route`).  The
-  batch is cut into tiles of at most ``sub_batch`` graphs, and each tile
-  runs :func:`~repro_torch.core.portfolio.run_detection_tile` on the live
-  edges of its graphs as one union (``graph/container.py:GraphUnion``):
-  one pass loop for all (``core/louvain.py:louvain_tile``; max-quality
-  runs two, refinement on the union in the split slot, then picks per
-  graph) or one LPA round loop (``core/lpa.py:lpa_run_tile``), so a
-  sweep or a round is one set of launches and one host read for the
-  tile.  Each graph keeps its own pass count, place on the ``tau``
-  ladder, sweep or round loop state and convergence: a graph that
-  converges stops moving and keeps its state, and a graph whose pass
-  loop is done leaves the union at the next aggregation.  A tile needs
-  no fixed width, so the last one holds what is left and no filler graph
-  runs.  A tile of one graph is ``run_detection`` of that graph.
+  the dense scan (:func:`~repro_torch.core.portfolio.tile_route`), and
+  the warm updates on the dense scan (:meth:`BatchedLouvainEngine.
+  update_route_for`).  The batch is cut into tiles of at most
+  ``sub_batch`` graphs, and each tile runs on the live edges of its
+  graphs as one union (``graph/container.py:GraphUnion``): a detection
+  tile runs :func:`~repro_torch.core.portfolio.run_detection_tile`, one
+  pass loop for all (``core/louvain.py:louvain_tile``; max-quality runs
+  two, refinement on the union in the split slot, then picks per graph)
+  or one LPA round loop (``core/lpa.py:lpa_run_tile``); an update tile
+  runs :func:`~repro_torch.core.dynamic.warm_update_tile`, one screening
+  and one warm sweep loop for all.  So a sweep or a round is one set of
+  launches and one host read for the tile.  Each graph keeps its own
+  pass count, place on the ``tau`` ladder, awake set, sweep or round
+  loop state and convergence: a graph that converges stops moving and
+  keeps its state, and a graph whose pass loop is done leaves the union
+  at the next aggregation.  A tile needs no fixed width, so the last one
+  holds what is left and no filler graph runs.  A tile of one graph is
+  ``run_detection`` (or ``warm_update``) of that graph.
 * ``"loop"`` for what stays one graph at a time: standard and
-  max-quality on the sortscan, ``sub_batch = 1``, and
-  :meth:`BatchedLouvainEngine.update_batch`: each graph runs
+  max-quality detections and the warm updates on the sortscan, and
+  every batch at ``sub_batch = 1``: each graph runs
   :func:`~repro_torch.core.portfolio.run_detection` (or ``warm_update``),
   the body of ``detect()``, one after another (ROADMAP A.8 option (a);
-  A.15 queues the rest of the batched routes).
+  A.15d queues the sortscan's union).
 
-Either way every result equals ``detect()`` of the same graph, bit for
-bit.  Results come back as numpy on the host, as the reference's do.
+Either way every result equals ``detect()`` (an update's,
+``warm_update``) of the same graph, bit for bit.  Results come back as
+numpy on the host, as the reference's do.
 ``sub_batch`` (``None``: 1 on the CPU, 8 on CUDA, the reference's rule)
 sets the tile width; ``DispatchInfo.capacity`` is tiles x ``sub_batch``,
 and ``fill`` (the ``batch_fill_factor`` gauge) the batch's share of it.
@@ -72,7 +77,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import DetectOptions
-from repro_torch.core.dynamic import warm_update
+from repro_torch.core.dynamic import warm_update, warm_update_tile
 from repro_torch.core.portfolio import (QualityContract, contract_for,
                                         run_detection, run_detection_tile,
                                         tile_route)
@@ -104,7 +109,9 @@ class UpdateResult:
 
     C: np.ndarray                # int32[nv] dense membership after the update
     n_communities: int
-    n_disconnected: int          # 0 by construction (split pass re-runs)
+    n_disconnected: int          # 0 by construction: the split pass
+                                 # (split_labels, 'pj') relabels each
+                                 # community by its connected pieces
     fraction: float
     iterations: int              # warm local-move sweeps
     q: float
@@ -122,7 +129,9 @@ class DispatchInfo:
     minus compile; ``device-sync`` = (t_call1, t_sync), the copy of the
     labels to the host.  ``fill`` is the batch's share of its tiles'
     width (the bucket fill-factor gauge); ``route`` is "tile" where tiles
-    of graphs ran in lockstep, "loop" where the graphs ran one by one.
+    of graphs ran in lockstep, "loop" where the graphs ran one by one,
+    for a detect batch (:meth:`BatchedLouvainEngine.route_for`) and an
+    update batch (:meth:`BatchedLouvainEngine.update_route_for`) alike.
     """
 
     kind: str                    # "detect" | "update"
@@ -288,6 +297,15 @@ class BatchedLouvainEngine:
             algorithm=self._resolve_algorithm(algorithm), mesh=None)
         tiled = self.sub_batch > 1 and tile_route(
             opts, bucket.nv, bucket.m_cap, self.device.type)
+        return "tile" if tiled else "loop"
+
+    def update_route_for(self, bucket: Bucket) -> str:
+        """"tile" where an update batch of ``bucket`` runs in lockstep
+        tiles (:func:`~repro_torch.core.dynamic.warm_update_tile`): at
+        ``sub_batch > 1`` on the dense scan.  Else "loop": the sortscan
+        buckets and ``sub_batch = 1``.  A batch never runs sharded, so
+        ``options.mesh`` plays no part, as in :meth:`_rows`."""
+        tiled = self.sub_batch > 1 and self.scan_for(bucket) == "dense"
         return "tile" if tiled else "loop"
 
     def _capacity(self, n: int) -> int:
@@ -460,13 +478,17 @@ class BatchedLouvainEngine:
                      fault_ids: Optional[Sequence[str]] = None
                      ) -> list[UpdateResult]:
         """Run a homogeneous (same-bucket) batch of delta-screened warm
-        updates, one after another on the engine's device.
+        updates on the engine's device: in tiles of at most ``sub_batch``
+        graphs in lockstep where :meth:`update_route_for` says "tile"
+        (:func:`~repro_torch.core.dynamic.warm_update_tile`; a tile of one
+        runs ``warm_update``), else one graph after another.
 
         ``items``: (updated graph, previous membership int32[nv], touched
         mask bool[nv]) triples, the graphs already rewritten on the host
-        (:func:`repro_torch.core.dynamic.prepare_graph_update`).  Each runs
-        :func:`~repro_torch.core.dynamic.warm_update`, the compute of the
-        store's immediate path, so the results are the same bits.
+        (:func:`repro_torch.core.dynamic.prepare_graph_update`), so
+        ``n_nodes`` may differ within a tile.  Each result is the bits of
+        :func:`~repro_torch.core.dynamic.warm_update` on its graph alone,
+        the compute of the store's immediate path.
         """
         items = list(items)
         if not items:
@@ -478,22 +500,35 @@ class BatchedLouvainEngine:
         bucket = self._same_bucket([g for g, _, _ in items])
         scan = self.scan_for(bucket)
         hit = self._dispatch_key(self._update_key(bucket, tau, max_iters))
+        route = self.update_route_for(bucket)
         dev = self.device
+        width = self.sub_batch if route == "tile" else 1
         t_call0 = time.perf_counter()
         with self._profiled():
-            rows = [warm_update(
-                g.to(dev), _on(C, torch.int32, dev), _on(t, torch.bool, dev),
-                tau=tau, max_iters=max_iters, scan=scan)
-                for g, C, t in items]
+            items = [(g.to(dev), _on(C, torch.int32, dev),
+                      _on(t, torch.bool, dev)) for g, C, t in items]
+            rows = []
+            for i in range(0, len(items), width):
+                tile = items[i:i + width]
+                if len(tile) > 1:
+                    rows.extend(warm_update_tile(
+                        [g for g, _, _ in tile],
+                        torch.stack([C for _, C, _ in tile]),
+                        torch.stack([t for _, _, t in tile]),
+                        tau=tau, max_iters=max_iters))
+                else:
+                    rows.append(warm_update(*tile[0], tau=tau,
+                                            max_iters=max_iters, scan=scan))
             t_call1 = time.perf_counter()
-            for r in rows:
-                r["C"] = r["C"].cpu().numpy()
+            labels = torch.stack([r["C"] for r in rows]).cpu().numpy()
+            for r, C in zip(rows, labels):
+                r["C"] = C
         t_sync = time.perf_counter()
         info = DispatchInfo(
             kind="update", bucket=bucket, n=len(items),
             capacity=self._capacity(len(items)), compile_hit=hit,
             t_start=t_start, t_call0=t_call0, t_call1=t_call1,
-            t_sync=t_sync)
+            t_sync=t_sync, route=route)
         self.last_update_info = info
         self._note_compile("update", bucket, hit)
         self._note_dispatch(info, rows)
@@ -508,14 +543,16 @@ class BatchedLouvainEngine:
 
     def warm_updates(self, bucket: Bucket, *, tau: float = 1e-3,
                      max_iters: int = 10) -> int:
-        """Dispatch one filler update if the bucket's update key is new
-        (mirror of :meth:`warm` for detections); returns the number of
-        dispatches."""
+        """Dispatch one filler update batch if the bucket's update key is
+        new (mirror of :meth:`warm` for detections): one full tile of
+        ``sub_batch`` filler updates on the tile route, one filler update
+        on the loop route.  Returns the number of dispatches."""
         if self._update_key(bucket, tau, max_iters) in self._keys:
             return 0
+        n = self.sub_batch if self.update_route_for(bucket) == "tile" else 1
         faults, self.faults = self.faults, None  # see warm()
         try:
-            self.update_batch([self._filler_update(bucket)], tau=tau,
+            self.update_batch([self._filler_update(bucket)] * n, tau=tau,
                               max_iters=max_iters)
         finally:
             self.faults = faults

@@ -408,4 +408,11 @@ def test_engine_routes_and_keys():
     eng.update_batch([(graphs[0], np.arange(nv, dtype=np.int32),
                        np.zeros(nv, bool))])
     assert (eng.last_update_info.route, eng.last_update_info.capacity) == (
-        "loop", 4)
+        "tile", 4)                                          # the dense scan
+    g_sort = _port(j_admit(sbm_graph(n_nodes=96, n_blocks=3, p_in=0.08,
+                                     p_out=0.01, seed=5)[0],
+                           [jservice.Bucket(256, 1024)])[0])
+    eng.update_batch([(g_sort, np.arange(g_sort.nv, dtype=np.int32),
+                       np.zeros(g_sort.nv, bool))])
+    assert (eng.last_update_info.route, eng.last_update_info.capacity) == (
+        "loop", 4)                                          # the sortscan

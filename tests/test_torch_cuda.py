@@ -795,8 +795,11 @@ def test_engine_card_equals_cpu(cuda, bucket):
         assert a.n_disconnected == 0
 
 
-def test_update_batch_card_equals_cpu(cuda):
-    from repro_torch.service import BatchedLouvainEngine, ResultStore
+@pytest.mark.parametrize("sub_batch", [1, 8, 32])
+def test_update_batch_card_equals_cpu(cuda, sub_batch):
+    """The card's update batch at each width (1 the loop, 8 and 32 the
+    tile) against the CPU's loop."""
+    from repro_torch.service import BatchedLouvainEngine, Bucket, ResultStore
 
     graphs = _engine_batch((1024, 16384))
     cpu = BatchedLouvainEngine(device="cpu")
@@ -814,7 +817,12 @@ def test_update_batch_card_equals_cpu(cuda):
         p = store.prepare_update(f"g{i}", upd)
         items.append((p.graph, p.C_prev, p.touched))
     want = cpu.update_batch(items)
-    got = BatchedLouvainEngine().update_batch(items)
+    assert cpu.last_update_info.route == "loop"
+    card = BatchedLouvainEngine(sub_batch=sub_batch)
+    got = card.update_batch(items)
+    route = "loop" if sub_batch == 1 else "tile"
+    assert card.update_route_for(Bucket(1024, 16384)) == route
+    assert card.last_update_info.route == route
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.C, b.C)
         assert (a.n_communities, a.n_disconnected, a.fraction, a.iterations,
