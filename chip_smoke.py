@@ -131,7 +131,19 @@ result line):
    0 disconnected; the tiles launch fewer segment reduces and dense
    kernels than the loop.  Each batch prints its wall, graphs/s,
    launches, sweeps and affected vertices (``--profile``: one traced
-   batch's device busy share).
+   batch's device busy share).  Then the same for two families on the
+   sortscan (``sortscan_families``): 32 ``rmat_graph(scale=12,
+   edge_factor=8, seed=s, n_cap=4096, m_cap=65536)`` in ``Bucket(4096,
+   65536)``, past the dense scan's 1,025 slots, and 32 sparse
+   ``sbm_graph(1000, 20, 0.06, 0.0005, seed=s, n_cap=1024, m_cap=4096)``
+   in ``Bucket(1024, 4096)``, under the card's 0.004 crossover; churn
+   (64, 32, 256, 128) and (16, 8, 64, 32).  Their tiles run the
+   sortscan on one union and launch no dense kernel (0 on the tile and
+   on the loop), and their half-sweep on a union of 8 and 32 graphs is
+   held on the card to each graph's half-sweep alone, bit for bit.  To
+   keep the run inside its time limit they skip width 1 (the loop route,
+   which the dense families check), and the sparse family runs the
+   standard tier alone, then its update batches.
 
 7. The timeline, the checkpoint and the degraded tier, on the card
    (``repro_torch.timeline``, ``checkpoint``, ``resilience``).  At full
@@ -1901,6 +1913,34 @@ def engine_families():
              "Bucket(64, 2048)", ego, egos)]
 
 
+SORTSCAN_RMAT = "rmat_graph(scale=12, edge_factor=8, seed=0..31)"
+SORTSCAN_SBM = "sbm_graph(1000, 20, 0.06, 0.0005, seed=0..31)"
+
+
+def sortscan_families():
+    """Phase 6's two sortscan workloads, (name, bucket, graphs on the
+    card, the tile widths of each tier it runs): R-MAT neighbourhoods
+    past the dense scan's 1,025 slots, and sparse road-like SBM patches
+    under the card's 0.004 crossover.  To keep the whole run inside its
+    time limit, both skip width 1 (the loop route, which the dense
+    families check) and the sparse family runs the standard tier alone
+    (and its update batches)."""
+    from repro_torch.graph import rmat_graph, sbm_graph
+    from repro_torch.service import Bucket
+
+    rmat = [rmat_graph(scale=12, edge_factor=8, seed=s, n_cap=4096,
+                       m_cap=65536, device="cuda")
+            for s in range(ENGINE_BATCH)]
+    sparse = [sbm_graph(1000, 20, 0.06, 0.0005, seed=s, n_cap=1024,
+                        m_cap=4096, device="cuda")[0]
+              for s in range(ENGINE_BATCH)]
+    return [(f"{SORTSCAN_RMAT} in Bucket(4096, 65536)",
+             Bucket(4096, 65536), rmat,
+             {alg: (8, 32) for alg in TILE_WIDTHS}),
+            (f"{SORTSCAN_SBM} in Bucket(1024, 4096)", Bucket(1024, 4096),
+             sparse, {"standard": (8, 32)})]
+
+
 def same_as_detect(r, d) -> bool:
     """An engine result against ``detect()`` of the same graph: labels,
     counts, stats and Q's bits."""
@@ -1957,17 +1997,21 @@ def engine_phase(profile=False) -> tuple[dict, object, dict]:
     standard = {}
     walls = {}
     loops = {}
-    fams = engine_families()
-    for name, bucket, graphs in fams:
+    fams = [f + (TILE_WIDTHS,) for f in engine_families()] + \
+        sortscan_families()
+    for name, bucket, graphs, tiers in fams:
         n = len(graphs)
-        log(f"  {name}: scan={engine.scan_for(bucket)}  sub_batch="
-            f"{engine.sub_batch} (auto)")
+        scan = engine.scan_for(bucket)
+        log(f"  {name}: scan={scan}  sub_batch={engine.sub_batch} (auto)  "
+            f"live directed edges a graph="
+            f"{min(g.num_edges() for g in graphs)}.."
+            f"{max(g.num_edges() for g in graphs)}")
         t0 = time.perf_counter()
         n_warm = engine.warm(bucket)
         torch.cuda.synchronize()
         log(f"    warm(bucket): {n_warm} full tiles of filler graphs in "
             f"{time.perf_counter() - t0} s  keys={len(engine.cache_keys())}")
-        for alg in ("standard", "max-quality", "fast"):
+        for alg in tiers:
             (res, n_dense), wall, n_seg, peak = timed_path(
                 lambda: dense_counted(
                     lambda: engine.detect_batch(graphs, algorithm=alg)))
@@ -1990,9 +2034,9 @@ def engine_phase(profile=False) -> tuple[dict, object, dict]:
                 f"{1e3 * wall / max(sweeps, 1)}  disconnected={n_disc}  "
                 f"peak device memory={peak:.3f} GiB")
             # the loop route launches what the loop of detect() does; the
-            # tile route fewer (LPA launches no dense kernel either way)
+            # tile route fewer (LPA and the sortscan launch no dense kernel)
             ok = launches_ok(alg, route, (n_seg, n_dense),
-                             (n_loop, n_dense_loop))
+                             (n_loop, n_dense_loop), scan)
             if not equal or not hit or route != "tile" or not ok:
                 raise AssertionError(
                     f"engine {alg} on {name} ({route}): equal={equal} key "
@@ -2018,8 +2062,9 @@ def engine_phase(profile=False) -> tuple[dict, object, dict]:
 
 
 # each family's churn: (remove, add, delete, insert) a graph, scaled to
-# its bucket
-UPDATE_CHURN = ((16, 8, 64, 32), (2, 2, 8, 4))
+# its bucket (the two dense families, then the two sortscan ones)
+UPDATE_CHURN = ((16, 8, 64, 32), (2, 2, 8, 4), (64, 32, 256, 128),
+                (16, 8, 64, 32))
 # the update batches' widths (width 1 is the loop route)
 UPDATE_WIDTHS = (1, 8, 32)
 
@@ -2050,7 +2095,8 @@ def update_widths(fams, standard, profile) -> dict:
     standard batch's labels, against the same items through a second
     store's immediate ``apply_update``: graph, labels, counts, Q bits and
     version equal, nothing disconnected.  A tile launches fewer segment
-    reduces and dense kernels than the loop.  Prints each batch's wall,
+    reduces and, on the dense scan, fewer dense kernels than the loop;
+    on the sortscan neither launches a dense kernel.  Prints each batch's wall,
     graphs/s, launches, sweeps and affected vertices, and under
     ``--profile`` one traced batch's device busy share.  Returns the
     launches by path."""
@@ -2060,7 +2106,7 @@ def update_widths(fams, standard, profile) -> dict:
     from repro_torch.service.store import CapacityExceeded
 
     out = {}
-    for (name, bucket, graphs), churn in zip(fams, UPDATE_CHURN):
+    for (name, bucket, graphs, _), churn in zip(fams, UPDATE_CHURN):
         entries = {f"g{i}": e for i, e in enumerate(zip(graphs,
                                                         standard[name]))}
 
@@ -2094,6 +2140,7 @@ def update_widths(fams, standard, profile) -> dict:
         loop = None
         for width in UPDATE_WIDTHS:
             eng = BatchedLouvainEngine(sub_batch=width)
+            dense = eng.scan_for(bucket) == "dense"
             eng.warm_updates(bucket)
             batched = store(ids)
             t0 = time.perf_counter()
@@ -2127,7 +2174,8 @@ def update_widths(fams, standard, profile) -> dict:
                 f"peak device memory={peak:.3f} GiB")
             ok = info.route == route and equal and n_disc == 0
             if route == "tile":
-                ok &= n_seg < loop[1] and n_dense < loop[2]
+                ok &= n_seg < loop[1] and (n_dense < loop[2] if dense
+                                           else n_dense == loop[2] == 0)
             if not ok:
                 raise AssertionError(
                     f"update_batch sub_batch={width} on {name}: route="
@@ -2163,14 +2211,15 @@ TILE_WIDTHS = {"standard": (1, 8, 32), "max-quality": (8, 32),
                "fast": (8, 32)}
 
 
-def launches_ok(alg, route, got, loop) -> bool:
+def launches_ok(alg, route, got, loop, scan) -> bool:
     """A batch's (segment-reduce, dense-kernel) launches against the loop
     of ``detect()``'s: the same on the loop route; on the tile route fewer
-    segment reduces, and fewer dense launches for the Louvain tiers (LPA
-    launches none either way)."""
+    segment reduces, and fewer dense launches for the Louvain tiers on
+    the dense scan (LPA, and every tier on the sortscan, launch none
+    either way)."""
     if route == "loop":
         return got == loop
-    dense_ok = (got[1] == loop[1] == 0 if alg == "fast"
+    dense_ok = (got[1] == loop[1] == 0 if alg == "fast" or scan == "sort"
                 else got[1] < loop[1])
     return got[0] < loop[0] and dense_ok
 
@@ -2183,18 +2232,20 @@ def tile_widths(fams, loops, profile) -> dict:
     dense kernels as often as the loop of ``detect()``; the tiles fewer
     (:func:`launches_ok`), and max-quality leaves nothing disconnected.
     Prints each batch's wall, graphs/s, launches and sweeps, and under
-    ``--profile`` one traced batch's device busy share; then holds the
-    dense kernels at ``b`` 8 and 32 to their batched plain versions on
-    the family's states, sweep and refinement states.  Returns the
-    launches by path."""
+    ``--profile`` one traced batch's device busy share; then holds, at
+    ``b`` 8 and 32 on the family's states, the dense kernels to their
+    batched plain versions (a dense-scan family) or the sortscan's
+    half-sweep on the union to each graph's alone (a sortscan family).
+    Returns the launches by path."""
     import torch
 
     from repro_torch.service import BatchedLouvainEngine
 
     out = {}
-    for name, bucket, graphs in fams:
+    for name, bucket, graphs, tiers in fams:
         n = len(graphs)
-        for alg, widths in TILE_WIDTHS.items():
+        scan = BatchedLouvainEngine().scan_for(bucket)
+        for alg, widths in tiers.items():
             dets, wall_loop, n_loop, n_dense_loop = loops[name, alg]
             log(f"  tiles {alg}, {name}: the loop of detect()={wall_loop} s"
                 f" ({n / wall_loop} graphs/s)  segreduce launches={n_loop}"
@@ -2225,7 +2276,8 @@ def tile_widths(fams, loops, profile) -> dict:
                     f"{peak:.3f} GiB")
                 route = "loop" if width == 1 else "tile"
                 ok = info.route == route and launches_ok(
-                    alg, route, (n_seg, n_dense), (n_loop, n_dense_loop))
+                    alg, route, (n_seg, n_dense), (n_loop, n_dense_loop),
+                    scan)
                 if alg == "max-quality":
                     ok &= n_disc == 0
                 if not equal or not ok:
@@ -2243,10 +2295,54 @@ def tile_widths(fams, loops, profile) -> dict:
                         f"launches={n_launch}  device busy={busy} s "
                         f"({100 * busy / t_wall} %)")
         for width in TILE_WIDTHS["standard"][1:]:
-            log(f"    dense kernels at b={width} on this family's states: "
-                f"{tile_kernel_checks(graphs[:width], seed=width)} checks "
-                f"equal")
+            if scan == "dense":
+                log(f"    dense kernels at b={width} on this family's "
+                    f"states: {tile_kernel_checks(graphs[:width], seed=width)}"
+                    f" checks equal")
+            else:
+                log(f"    sortscan half-sweep on a union of b={width} on "
+                    f"this family's states: "
+                    f"{sortscan_tile_checks(graphs[:width], seed=width)} "
+                    f"checks equal to each graph's alone")
     return out
+
+
+def sortscan_tile_checks(graphs, seed) -> int:
+    """The sortscan's half-sweep on the union of ``graphs`` (``b =
+    len(graphs)``, B.1 at the union's shapes) on a seeded state
+    (``tests/_torch_tile_cases.py``), a sweep's and a refinement's, with
+    and without targets and anchoring: each graph's ``C_new``, Sigma,
+    ``move`` and ``want`` bit for bit against its half-sweep alone on the
+    card.  Returns the number of checks; raises on a miss."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_tile_cases import tile_state
+
+    from repro_torch.core.local_move import _half_sweep
+
+    checks, misses = 0, []
+    for refine in (False, True):
+        lone, union, u = tile_state(graphs, seed=seed, refine=refine)
+        nv = u.nv
+        for target, anchored in ((True, True), (False, True),
+                                 (False, False)):
+            got = _half_sweep(*union[:8], union[8] if target else None,
+                              anchored, gain=False, graphs=u.b)
+            ok = True
+            for g, a in enumerate(lone):
+                sl = slice(g * nv, (g + 1) * nv)
+                alone = _half_sweep(*a[:8], a[8] if target else None,
+                                    anchored, gain=False)
+                ok &= bits_equal(got[0][sl] - g * nv, alone[0]) and all(
+                    bits_equal(got[i][sl], alone[i]) for i in (1, 2, 4))
+            checks += 1
+            if not ok:
+                misses.append(f"refine={refine} target={target} "
+                              f"anchored={anchored}")
+    if misses:
+        raise AssertionError(f"the sortscan half-sweep on a union of "
+                             f"{len(graphs)} differs from the lone one: "
+                             + "; ".join(misses))
+    return checks
 
 
 def tile_kernel_checks(graphs, seed) -> int:

@@ -9,16 +9,21 @@ script once a version, alternating them in one command (A, B, B, A):
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported.
 Each run prints one JSON line: for each of ``chip_smoke.py`` phase 6's
-two families of 32 (``Bucket(1024, 16384)`` and the ego-nets of
-``Bucket(64, 2048)``), each ``--tiers`` entry (default ``standard``) and
+families of 32 that ``--families`` names (``dense``, the default: the
+dense scan's ``Bucket(1024, 16384)`` and the ego-nets of ``Bucket(64,
+2048)``; ``sortscan``: the R-MAT scale-12 graphs of ``Bucket(4096,
+65536)`` and the sparse SBMs of ``Bucket(1024, 4096)``,
+``chip_smoke.sortscan_families``; or ``all``), each ``--tiers`` entry
+(default ``standard``) and
 each ``--widths`` entry, keyed ``"<tier> <width>"``, the engine's
 ``detect_batch`` after ``warm(bucket)``: the median wall of ``--reps``
 batches, graphs/s, the segment-reduce (B.1) and dense-kernel launches a
 batch, the route, and a digest of every graph's labels, stats and Q
 (equal digests: the same results).  A tree whose engine takes no
 ``sub_batch`` (before the tile) runs its one route and reports it as
-width ``"loop"``.  Walls are the host's clock around a synchronized
-call.
+width ``"loop"``, and a tree whose engine runs a bucket's tier on the
+loop at every width reports each width's route as "loop".  Walls are the
+host's clock around a synchronized call.
 
 ``--updates`` times the engine's ``update_batch`` instead, keyed
 ``"update <width>"``: each family's 32 churn items of ``chip_smoke.py``
@@ -39,7 +44,19 @@ import time
 from pathlib import Path
 
 
-def families():
+def families(kind: str):
+    """``(name, bucket, graphs, churn)`` of each family of ``kind``."""
+    churn = _chip_smoke().UPDATE_CHURN
+    out = []
+    if kind in ("dense", "all"):
+        out += [f + (c,) for f, c in zip(dense_families(), churn[:2])]
+    if kind in ("sortscan", "all"):
+        out += [f + (c,) for f, c in zip(_chip_smoke().sortscan_families(),
+                                         churn[2:])]
+    return out
+
+
+def dense_families():
     from repro_torch.graph import sbm_graph
     from repro_torch.service import Bucket
     from repro_torch.service.buckets import admit
@@ -185,6 +202,10 @@ def main(argv=None) -> dict:
                     help="comma-separated tiers")
     ap.add_argument("--updates", action="store_true",
                     help="time update_batch of the churn items instead")
+    ap.add_argument("--families", default="dense",
+                    choices=("dense", "sortscan", "all"),
+                    help="phase 6's dense-scan families, its sortscan "
+                    "ones, or both")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
     import inspect
@@ -203,10 +224,9 @@ def main(argv=None) -> dict:
     widths = [int(w) for w in args.widths.split(",")] if tiled else ["loop"]
     rep = dict(label=args.label,
                package=str(Path(repro_torch.__file__).parent), batches={})
-    for i, (name, bucket, graphs) in enumerate(families()):
+    for name, bucket, graphs, churn in families(args.families):
         if args.updates:
-            items, skipped = update_items(graphs,
-                                          _chip_smoke().UPDATE_CHURN[i])
+            items, skipped = update_items(graphs, churn)
             rep["batches"][name] = dict(skipped_seeds=skipped, **{
                 f"update {w}": run_updates(w, bucket, items, args.reps)
                 for w in widths})

@@ -638,11 +638,11 @@ def warm_update(g: Graph, C_prev, touched, *, tau=1e-3, max_iters: int = 10,
 
 
 def warm_update_tile(graphs, C_prev, touched, *, tau=1e-3,
-                     max_iters: int = 10) -> list[dict]:
-    """:func:`warm_update` (``scan='dense'``) of ``b`` same-capacity graphs
-    at once, the batched engine's tile (the reference's vmapped
-    ``warm_update_impl``): one dict a graph with ``warm_update``'s keys
-    and types, each the bits of ``warm_update`` on its graph alone.
+                     max_iters: int = 10, scan: str = "dense") -> list[dict]:
+    """:func:`warm_update` of ``b`` same-capacity graphs at once, the
+    batched engine's tile (the reference's vmapped ``warm_update_impl``):
+    one dict a graph with ``warm_update``'s keys and types, each the bits
+    of ``warm_update(scan=scan)`` on its graph alone.
 
     ``graphs``: a list of graphs, or a :func:`stack_graphs` result;
     ``C_prev`` int32 and ``touched`` bool ``[b, nv]``.  The graphs' live
@@ -650,11 +650,15 @@ def warm_update_tile(graphs, C_prev, touched, *, tau=1e-3,
     the screening runs there on ``C_prev`` as given, then each graph's
     ghost slot is set for the sweep and Sigma0, as ``warm_update`` does.
     2m folds each graph's padded ``w`` (``Graph.total_weight_2m``), K and
-    Sigma0 are the in-order folds of the lone path over the same elements,
-    and one :func:`tile_adjacency` serves the warm
-    :func:`~repro_torch.core.local_move.local_move_tile`, the split and
-    the detector.  Every per-graph count and value comes to the host in
-    one copy at the end; the labels stay on the graphs' device."""
+    Sigma0 are the in-order folds of the lone path over the same elements.
+    On the dense scan one :func:`tile_adjacency` serves the warm
+    :func:`~repro_torch.core.local_move.local_move_tile` and the split;
+    the sortscan builds no ``[b, nv, nv]`` matrix: its warm sweeps sort
+    the union's edges and its split is the coo ``split_labels`` on the
+    union with the lone round limit (an integer fixpoint, each graph's
+    own).  The detector and the modularity are coo on the union for both.
+    Every per-graph count and value comes to the host in one copy at the
+    end; the labels stay on the graphs' device."""
     stacked = graphs if isinstance(graphs, Graph) else stack_graphs(graphs)
     b, nv, dev = stacked.src.shape[0], stacked.nv, stacked.device
     n = b * nv
@@ -673,13 +677,17 @@ def warm_update_tile(graphs, C_prev, touched, *, tau=1e-3,
     ghosts = union_ghosts(b, nv, dev)
     C0[ghosts.long()] = ghosts
     Sigma0 = ops.segment_sum_inorder(K, C0, n)
-    adj = tile_adjacency(u.src, u.dst, b, nv)
+    adj = tile_adjacency(u.src, u.dst, b, nv) if scan == "dense" else None
     C, _, _, sweeps = local_move_tile(
         u.src, u.dst, u.w, C0, K, Sigma0, two_m, counts=u.counts, tau=tau,
-        max_iters=max_iters, sync="handshake", adj=adj, active0=active0,
-        warm=True)
-    labels = split_labels_tile((C - base).view(b, nv), adj, mode="pj"
-                               ).view(n) + base
+        max_iters=max_iters, sync="handshake", scan=scan, adj=adj,
+        active0=active0, warm=True)
+    if adj is None:
+        labels, _ = split_labels(u.src, u.dst, u.w, C, mode="pj",
+                                 max_iters=nv)
+    else:
+        labels = split_labels_tile((C - base).view(b, nv), adj, mode="pj"
+                                   ).view(n) + base
     node_mask = (torch.arange(nv, device=dev)[None, :]
                  < stacked.n_nodes[:, None]).view(n)
     C_new, n_comms = seg.renumber_tile(labels, node_mask, b)

@@ -31,10 +31,12 @@ folds in another order.
 reductions by run vertex), the paired baseline of the fused one: the same
 bits, on the same kernel.
 
-:func:`local_move_tile` is the dense loop of the batched engine's tile:
+:func:`local_move_tile` is the sweep loop of the batched engine's tile:
 the graphs of one bucket laid out as one union of ``b * nv`` slots, swept
-in lockstep (the dense half-sweep and realized modularity with a graph
-axis), every convergence decision kept per graph.
+in lockstep by either scan (the dense half-sweep and realized modularity
+with a graph axis, or the sortscan's half-sweep on the union, which
+builds no ``[b, nv, nv]`` matrix), every convergence decision kept per
+graph.
 """
 from __future__ import annotations
 
@@ -138,7 +140,7 @@ def realized_modularity(src, dst, w, C, Sigma, two_m, *, group=None,
 
 
 def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
-                anchored=True, owned=None, group=None):
+                anchored=True, owned=None, group=None, gain=True, graphs=1):
     """One synchronous half-sweep (fused sortscan).  Returns
     ``(C_new, Sigma_new, moved, gain, want)``.
 
@@ -152,17 +154,42 @@ def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
     merge the owners' decisions (an int32 ``psum`` of disjoint rows, a
     ``psum`` and a ``pmax``), and every rank recomputes Sigma from the
     replicated K and ``C_new`` with the single-device in-order fold; it is
-    never merged.  ``gain`` stays this shard's (no caller reads it).
+    never merged.  ``gain`` stays this shard's (no caller reads it);
+    ``gain=False`` returns ``None`` for it, as the dense twin does.
+
+    ``graphs = b > 1`` sweeps a tile, the sortscan's union: the ``b * nv``
+    slots of a :class:`~repro_torch.graph.container.GraphUnion` (its live
+    edges, ``src`` sorted and graph-major), community ids in their own
+    graph's slots, ``two_m`` float32 ``[b]``, each graph's ghost at its
+    local ``nv - 1``.  No edge crosses graphs and the union keeps each
+    graph's edges in their order, so the stable ``(src, C[dst])`` sort
+    gives each graph's runs in their lone order, each run folds its
+    elements in the lone order, and Sigma's sort by ``C_new`` keeps vertex
+    order inside each community.  Each element reads its own graph's 2m
+    and ghost slot (``c_star``'s empty fill is ``INT_MAX``, so a vertex
+    moves only below its own graph's ghost), and every graph's ghost is
+    reset in ``C_new``: each graph's outputs are the bits of its
+    half-sweep alone, and ``gain`` is ``[b]``.  ``owned`` and ``group``
+    are single-graph only.
     """
-    nv = C.shape[0]
+    n = C.shape[0]
+    nv = n // graphs
     m_cap = src.shape[0]
-    ghost = nv - 1
+    ghost = n - 1               # the last slot parks K_own's other writes
 
     # --- scanCommunities: sort by (src, C[dst]); gather payloads ---------
     cd = C[dst]
     s_src, s_cd, perm = seg.sort_runs(src, cd)
     s_dst = dst[perm]
     s_w = w[perm]
+    if graphs > 1:   # each element's own graph: its ghost slot and 2m
+        g_e = torch.div(s_src, nv, rounding_mode="floor")
+        ghost_e = g_e * nv + (nv - 1)
+        two_m = torch.index_select(two_m, 0, g_e)
+        slot = torch.arange(n, dtype=torch.int32, device=C.device)
+        ghost_v = slot - torch.remainder(slot, nv) + (nv - 1)
+    else:
+        ghost_e = ghost_v = ghost
     not_self = s_src != s_dst  # exclude self-loops from scan (paper Alg. 4)
     w_all = torch.where(not_self, s_w, 0.0)
     w_frozen = (torch.where(not_self & ~movable[s_dst], s_w, 0.0)
@@ -176,9 +203,9 @@ def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
 
     # --- K_{i->d}: true weight to own community (excluding self) ---------
     # at most one own run per vertex: a scatter-set at own-run starts, with
-    # every other element parked on the ghost slot and cleared after
+    # every other element parked on the last slot and cleared after
     own_start = starts & (s_cd == C[s_src])
-    K_own = torch.zeros(nv, dtype=torch.float32, device=C.device)
+    K_own = torch.zeros(n, dtype=torch.float32, device=C.device)
     K_own[torch.where(own_start, s_src, ghost)] = torch.where(
         own_start, W_all_e, 0.0)
     K_own[ghost] = 0.0
@@ -190,7 +217,8 @@ def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
         2.0 * (W_all_e - K_own[s_src]) / two_m
         - 2.0 * Ki * (Ki + Sigma[s_cd] - Sigma[d_of_i]) / (two_m * two_m)
     )
-    valid = starts & (s_src < ghost) & (s_cd < ghost) & (s_cd != d_of_i)
+    valid = (starts & (s_src < ghost_e) & (s_cd < ghost_e)
+             & (s_cd != d_of_i))
     cand = valid & (W_frz_e > 0.0) & movable[s_src]
     if owned is not None:
         cand = cand & owned[s_src]
@@ -202,7 +230,7 @@ def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
     # pass B: want and best in one 2-channel sorted segment max
     dq_c = torch.where(cand, dq, NEG)
     mx = ops.segreduce_sorted(
-        torch.stack([torch.where(base, dq, NEG), dq_c], dim=1), s_src, nv,
+        torch.stack([torch.where(base, dq, NEG), dq_c], dim=1), s_src, n,
         op="max")
     want = mx[:, 0] > 0.0
     best = mx[:, 1]
@@ -210,19 +238,23 @@ def _half_sweep(src, dst, w, C, K, Sigma, two_m, movable, target_ok=None,
     # --- argmax per source vertex (min community id breaks ties) ---------
     is_best = cand & (dq_c >= best[s_src])
     c_star = ops.segreduce_sorted(torch.where(is_best, s_cd, seg.INT_MAX),
-                                  s_src, nv, op="min")
-    move = (best > 0.0) & (c_star < ghost)
+                                  s_src, n, op="min")
+    move = (best > 0.0) & (c_star < ghost_v)
     C_new = torch.where(move, c_star, C)
-    gain = torch.sum(torch.where(move, best, 0.0))
+    gain = _gain(move, best, graphs) if gain else None
     if group is not None:
         # merge the owners' decisions (each vertex owned by one shard)
         C_new = col.psum(torch.where(owned, C_new, 0), group)
         move = col.psum((owned & move).to(torch.int32), group) > 0
         want = col.pmax((want & owned).to(torch.int32), group) > 0
-    C_new[ghost] = ghost
+    if graphs > 1:
+        ghosts = union_ghosts(graphs, nv, C.device)
+        C_new[ghosts.long()] = ghosts
+    else:
+        C_new[ghost] = ghost
 
     # --- exact Sigma recompute (synchronous, in-order) --------------------
-    Sigma_new = ops.segment_sum_inorder(K, C_new, nv)
+    Sigma_new = ops.segment_sum_inorder(K, C_new, n)
     return C_new, Sigma_new, move, gain, want
 
 
@@ -692,17 +724,15 @@ def realized_modularity_tile(src, dst, w, C, Sigma, two_m, counts):
 
 def local_move_tile(src, dst, w, C0, K, Sigma0, two_m, *, counts, tau,
                     max_iters: int = 20, sync: str = "handshake",
-                    prune: bool = True, adj=None, active0=None,
-                    warm: bool = False):
-    """:func:`local_move` (dense scan) of the ``b = len(counts)`` graphs of
-    a tile at once: one set of launches and one host read a sweep.
-    Returns ``(C, Sigma, l_i, sweeps)``, ``l_i`` and ``sweeps`` int64
-    numpy ``[b]``.
+                    prune: bool = True, scan: str = "dense", adj=None,
+                    active0=None, warm: bool = False):
+    """:func:`local_move` of the ``b = len(counts)`` graphs of a tile at
+    once: one set of launches and one host read a sweep.  Returns ``(C,
+    Sigma, l_i, sweeps)``, ``l_i`` and ``sweeps`` int64 numpy ``[b]``.
 
     The edges are a :class:`~repro_torch.graph.container.GraphUnion`'s
     (``counts`` its per-graph live edges), ``C0``/``K``/``Sigma0`` are
-    ``[b * nv]`` in its slots, ``two_m`` float32 ``[b]``, ``adj`` the
-    :func:`tile_adjacency` (built here when not given).  Every graph
+    ``[b * nv]`` in its slots, ``two_m`` float32 ``[b]``.  Every graph
     starts at sweep 0, so all share the sweep index and its parity roll
     (by local id).  Each keeps its own ``dQ_iter``, ``dQ_prev``, productive
     count, best ``C``/``Sigma``/``Q``, awake set and convergence: once its
@@ -711,6 +741,15 @@ def local_move_tile(src, dst, w, C0, K, Sigma0, two_m, *, counts, tau,
     a vmapped ``while_loop`` selects it.  So each graph's outputs are the
     bits of :func:`local_move` on it alone.  The sweep's gains come to the
     host in one ``[b]`` copy.
+
+    ``scan='dense'`` sweeps with :func:`_half_sweep_dense` and wakes
+    neighbours through ``adj``, the :func:`tile_adjacency` (built here
+    when not given); on the card realized Q is the dense modularity
+    kernel.  ``scan='sort'`` sweeps with the sortscan's :func:`_half_sweep`
+    on the union and wakes neighbours by the union's sorted ``src``
+    (:func:`wake_neighbours` over ``b * nv`` slots): no ``[b, nv, nv]``
+    matrix is built, and realized Q is :func:`realized_modularity_tile` on
+    either device.
 
     ``active0`` (bool ``[b * nv]``, default all awake) and ``warm`` give
     each graph the warm start of ``core/dynamic.py:warm_local_move``: the
@@ -725,11 +764,23 @@ def local_move_tile(src, dst, w, C0, K, Sigma0, two_m, *, counts, tau,
     nv = n // b
     dev = C0.device
     tau = np.float32(tau)
-    if adj is None:
-        adj = tile_adjacency(src, dst, b, nv)
     masks = _tile_parity_masks(nv, max_iters, b, dev)
     kw = dict(gain=False, graphs=b)
-    if dev.type == "cuda":
+    if scan == "dense":
+        sweep = _half_sweep_dense
+        if adj is None:
+            adj = tile_adjacency(src, dst, b, nv)
+
+        def wake(moved):
+            return wake_neighbours_tile(moved, adj)
+    elif scan == "sort":
+        sweep = _half_sweep
+
+        def wake(moved):
+            return wake_neighbours(moved, src, dst, n)
+    else:
+        raise ValueError(f"scan must be 'sort' or 'dense', got {scan!r}")
+    if scan == "dense" and dev.type == "cuda":
         kw["rows"] = edge_rows(src, n)
         eptr = torch.from_numpy(np.concatenate(
             [[0], np.cumsum(counts)]).astype(np.int32)).to(dev)
@@ -765,14 +816,14 @@ def local_move_tile(src, dst, w, C0, K, Sigma0, two_m, *, counts, tau,
             if run_v is not None:
                 movable = movable & run_v
             target_ok = None if tp is None else par[tp]
-            C, Sigma, moved, _, want = _half_sweep_dense(
+            C, Sigma, moved, _, want = sweep(
                 src, dst, w, C, K, Sigma, two_m, movable,
                 target_ok=target_ok, anchored=ph is not None, **kw)
             moved_any = moved if moved_any is None else moved_any | moved
         q_now = realized(C, Sigma)
         if prune:
             # schedule-blocked desire stays awake, as in _move_loop
-            active = wake_neighbours_tile(moved_any, adj) | (
+            active = wake(moved_any) | (
                 (want & active) if warm else want)
         else:
             active = torch.ones(n, dtype=torch.bool, device=dev)

@@ -31,8 +31,8 @@ bit.
 :func:`louvain_staged` is the reference's Figure-5 entry point: the same loop
 with wall seconds per phase and per pass, and the reference's host
 arithmetic in float64.  :func:`louvain_tile` is the pass loop of the
-batched engine's tile, for several graphs of one bucket at once (the
-dense scan, every split policy).
+batched engine's tile, for several graphs of one bucket at once (either
+scan, every split policy).
 """
 from __future__ import annotations
 
@@ -139,24 +139,25 @@ def refine_labels(src, dst, w, C, two_m, *, tau, max_iters: int = 10,
 
 
 def refine_labels_tile(src, dst, w, C, two_m, *, counts, tau,
-                       max_iters: int = 10, adj=None):
-    """:func:`refine_labels` (dense scan) of each graph of a tile: ``C``
-    ``[b * nv]`` in a ``GraphUnion``'s slots (``counts`` its per-graph
-    live edges, host ints), ``two_m`` float32 ``[b]``, each graph's 2m.
-    The cross-community weights are zeroed and every edge kept, so the
-    pass's :func:`~repro_torch.core.local_move.tile_adjacency` ``adj`` is
-    shared; ``K_in`` is one segment sum over the union's slots; the local
-    move starts from singletons with its own defaults ('handshake',
-    pruning), as :func:`refine_labels`'s does.  Returns the refined labels
-    ``[b * nv]``, each graph's the bits of :func:`refine_labels` on it
-    alone."""
+                       max_iters: int = 10, scan: str = "dense", adj=None):
+    """:func:`refine_labels` of each graph of a tile: ``C`` ``[b * nv]``
+    in a ``GraphUnion``'s slots (``counts`` its per-graph live edges, host
+    ints), ``two_m`` float32 ``[b]``, each graph's 2m.  The
+    cross-community weights are zeroed and every edge kept, so on the
+    dense scan the pass's
+    :func:`~repro_torch.core.local_move.tile_adjacency` ``adj`` is shared
+    (the sortscan needs none); ``K_in`` is one segment sum over the
+    union's slots; the local move (``scan``) starts from singletons with
+    its own defaults ('handshake', pruning), as :func:`refine_labels`'s
+    does.  Returns the refined labels ``[b * nv]``, each graph's the bits
+    of :func:`refine_labels` on it alone."""
     n = C.shape[0]
     w_in = torch.where(C[src] == C[dst], w, 0.0)
     K_in = ops.segreduce_sorted(w_in, src, n, op="sum")
     C0 = torch.arange(n, dtype=torch.int32, device=C.device)
     R, _, _, _ = local_move_tile(src, dst, w_in, C0, K_in, K_in, two_m,
                                  counts=counts, tau=tau, max_iters=max_iters,
-                                 adj=adj)
+                                 scan=scan, adj=adj)
     return R
 
 
@@ -192,23 +193,33 @@ def _split_unconnected(live, C, node_mask):
     return seg.renumber(L, node_mask, nv)[0], moved
 
 
-def _split_unconnected_tile(adj, C, node_mask):
-    """:func:`_split_unconnected` of each graph of a tile: ``adj`` the
-    :func:`~repro_torch.core.local_move.tile_adjacency` ``[b, nv, nv]`` of
-    the graphs' live edges, ``C`` and ``node_mask`` ``[b * nv]`` in union
-    slots.  Returns ``(C, moved)``, ``moved`` int64 numpy ``[b]``.
+def _split_unconnected_tile(edges, C, node_mask):
+    """:func:`_split_unconnected` of each graph of a tile: ``edges`` the
+    graphs' live edges, as the
+    :func:`~repro_torch.core.local_move.tile_adjacency` ``[b, nv, nv]``
+    (the dense scan) or as their
+    :class:`~repro_torch.graph.container.GraphUnion` (the sortscan), ``C``
+    and ``node_mask`` ``[b * nv]`` in union slots.  Returns ``(C,
+    moved)``, ``moved`` int64 numpy ``[b]``.
 
-    The split is the dense one on each graph's adjacency (the single-graph
-    repair runs the coo split: both reach the same integer fixpoint).
-    Pieces and communities are counted per graph in one host copy; only a
-    graph whose counts differ is renumbered from its pieces, and the rest
-    keep ``C`` as it was, with 0 moved."""
-    b, nv, _ = adj.shape
+    The split is the dense one on each graph's adjacency, or the coo one
+    on the union, as the single-graph repair runs it (the same ``nv``
+    round limit; no edge crosses graphs, so each graph's labels are its
+    own): both reach the same integer fixpoint.  Pieces and communities
+    are counted per graph in one host copy; only a graph whose counts
+    differ is renumbered from its pieces, and the rest keep ``C`` as it
+    was, with 0 moved."""
+    if isinstance(edges, GraphUnion):
+        b, nv = edges.b, edges.nv
+        L, _ = split_labels(edges.src, edges.dst, edges.w, C, mode="pj",
+                            max_iters=nv)
+    else:
+        b, nv, _ = edges.shape
+        slot = torch.arange(b * nv, dtype=torch.int32, device=C.device)
+        base = slot - torch.remainder(slot, nv)
+        L = split_labels_tile((C - base).view(b, nv), edges, mode="pj"
+                              ).view(b * nv) + base
     n = b * nv
-    slot = torch.arange(n, dtype=torch.int32, device=C.device)
-    base = slot - torch.remainder(slot, nv)
-    L = split_labels_tile((C - base).view(b, nv), adj, mode="pj"
-                          ).view(n) + base
     counts = torch.stack([seg.count_communities_tile(x, node_mask, b)
                           for x in (L, C)]).cpu().numpy()
     split = counts[0] != counts[1]
@@ -372,30 +383,41 @@ def louvain_staged(g: Graph, cfg: LouvainConfig | None = None, *,
 
 
 def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig(), *,
-                 union: GraphUnion | None = None):
-    """The pass loop of :func:`louvain_impl` (``scan='dense'``) for the
-    ``b`` graphs of a :func:`stack_graphs` result at once, the batched
-    engine's tile, with any split policy.  Returns ``(C int32 [b, nv],
+                 union: GraphUnion | None = None, scan: str = "dense"):
+    """The pass loop of :func:`louvain_impl` for the ``b`` graphs of a
+    :func:`stack_graphs` result at once, the batched engine's tile, with
+    any split policy and either ``scan``.  Returns ``(C int32 [b, nv],
     stats, union)``: each graph's top-level labels and stats, the bits of
-    ``louvain_impl`` on it alone, and the
+    ``louvain_impl(scan=scan)`` on it alone, and the
     :class:`~repro_torch.graph.container.GraphUnion` of its live edges
     (the detector and the modularity run on it; ``union`` passes one
     already made of ``stacked``).
 
     The graphs still in the loop form one union a pass: one ``K``, one
     :func:`~repro_torch.core.local_move.local_move_tile`, one split slot
-    (``split_labels_tile`` for 'sp-*', :func:`refine_labels_tile` for
-    'refine', nothing for 'none' and 'sl-*'), one renumber and one
-    aggregation for all.  Each graph keeps its own ``li``, community count,
-    ``n_cur``, float32 shrink test and stats; all start together, so they
-    share the pass index and ``tau``.  A graph whose loop is done (``li <=
-    1`` or a low shrink) leaves the union at the aggregation, its labels
-    final.  Each pass reads the community counts and split moves of all
-    its graphs in one host copy.  After the loop, 'sl-*' splits every
-    graph once and 'refine' splits what refinement left unconnected
-    (:func:`_split_unconnected_tile`), both on the tile adjacency of the
-    original live edges."""
+    (the split for 'sp-*', :func:`refine_labels_tile` for 'refine',
+    nothing for 'none' and 'sl-*'), one renumber and one aggregation for
+    all.  Each graph keeps its own ``li``, community count, ``n_cur``,
+    float32 shrink test and stats; all start together, so they share the
+    pass index and ``tau``.  A graph whose loop is done (``li <= 1`` or a
+    low shrink) leaves the union at the aggregation, its labels final.
+    Each pass reads the community counts and split moves of all its
+    graphs in one host copy.  After the loop, 'sl-*' splits every graph
+    once and 'refine' splits what refinement left unconnected
+    (:func:`_split_unconnected_tile`), both on the original live edges.
+
+    The dense scan builds one :func:`~repro_torch.core.local_move.
+    tile_adjacency` ``[b, nv, nv]`` a pass, shared by the local move, the
+    refinement and ``split_labels_tile``.  The sortscan builds none: its
+    sweeps sort the union's edges, and every split is the coo
+    :func:`~repro_torch.core.split.split_labels` on the union with the
+    lone graph's round limit.  That split is an integer fixpoint and a
+    graph at its fixpoint maps to itself, so the rounds the union runs
+    past one graph's last change leave its labels as they were; no edge
+    crosses graphs, so each graph's labels are its own."""
     _check_split(cfg.split)
+    _check_scan(scan)
+    dense = scan == "dense"
     b, nv, dev = stacked.src.shape[0], stacked.nv, stacked.device
     union = union_of(stacked) if union is None else union
     # 2m over each graph's padded edges, as Graph.total_weight_2m
@@ -405,9 +427,11 @@ def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig(), *,
     local = torch.arange(nv, dtype=torch.int32, device=dev)
     Ctop = local.repeat(b, 1)
     esrc, edst, ew, counts = union.src, union.dst, union.w, union.counts
-    adj0 = tile_adjacency(esrc, edst, b, nv)   # the original live edges
+    # the original live edges: their tile adjacency, or their union
+    adj0 = tile_adjacency(esrc, edst, b, nv) if dense else None
     refine = cfg.split == "refine"
     mode = _split_mode(cfg.split)
+    split_iters = cfg.split_max_iters if cfg.split_max_iters > 0 else nv
     pos = np.arange(b)              # the graphs in the union, in order
     n_cur = n_nodes.copy()
     tau = np.float32(cfg.tolerance)
@@ -424,20 +448,27 @@ def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig(), *,
         node_valid = (local[None, :] < torch.from_numpy(n_cur[pos]).to(dev)[
             :, None]).view(a * nv)
         K = ops.segreduce_sorted(ew, esrc, a * nv, op="sum")
-        adj = adj0 if n_pass == 0 else tile_adjacency(esrc, edst, a, nv)
+        adj = None
+        if dense:
+            adj = adj0 if n_pass == 0 else tile_adjacency(esrc, edst, a, nv)
         two_m_a = two_m[pos_t]
         C, _, li, _ = local_move_tile(
             esrc, edst, ew, ids, K, K, two_m_a, counts=counts, tau=tau,
-            max_iters=cfg.max_iters, sync=cfg.sync, prune=cfg.prune, adj=adj)
+            max_iters=cfg.max_iters, sync=cfg.sync, prune=cfg.prune,
+            scan=scan, adj=adj)
         if refine:
             labels = refine_labels_tile(esrc, edst, ew, C, two_m_a,
                                         counts=counts, tau=tau,
-                                        max_iters=cfg.max_iters, adj=adj)
-        elif cfg.split.startswith("sp"):
+                                        max_iters=cfg.max_iters, scan=scan,
+                                        adj=adj)
+        elif cfg.split.startswith("sp") and dense:
             labels = split_labels_tile((C - base).view(a, nv), adj,
                                        mode=mode,
                                        max_iters=cfg.split_max_iters
                                        ).view(a * nv) + base
+        elif cfg.split.startswith("sp"):
+            labels, _ = split_labels(esrc, edst, ew, C, mode=mode,
+                                     max_iters=split_iters)
         else:
             labels = C
         C_dense, n_comms = seg.renumber_tile(labels, node_valid, a)
@@ -480,14 +511,19 @@ def louvain_tile(stacked: Graph, cfg: LouvainConfig = LouvainConfig(), *,
     node_mask = (local[None, :] < stacked.n_nodes[:, None]).view(b * nv)
     if cfg.split.startswith("sl"):
         # split last: once, on the original graphs' top-level labels
-        labels = split_labels_tile(Ctop, adj0, mode=mode,
-                                   max_iters=cfg.split_max_iters
-                                   ).view(b * nv) + base
+        if dense:
+            labels = split_labels_tile(Ctop, adj0, mode=mode,
+                                       max_iters=cfg.split_max_iters
+                                       ).view(b * nv) + base
+        else:
+            labels, _ = split_labels(union.src, union.dst, union.w, top,
+                                     mode=mode, max_iters=split_iters)
         split_moved += torch.sum(((labels != top) & node_mask).view(b, nv),
                                  dim=1).cpu().numpy()
         top = seg.renumber_tile(labels, node_mask, b)[0]
     elif refine:
-        top, moved = _split_unconnected_tile(adj0, top, node_mask)
+        top, moved = _split_unconnected_tile(adj0 if dense else union, top,
+                                             node_mask)
         split_moved += moved
     Ctop = (top - base).view(b, nv)
     n_final = seg.count_communities_tile(top, node_mask, b).tolist()

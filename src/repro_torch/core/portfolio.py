@@ -16,8 +16,8 @@ One dispatch over the tiers of ``DetectOptions.algorithm``, each with the
                    reference omits (ROADMAP C.7).
 
 :func:`run_detection_tile` is :func:`run_detection` for several graphs
-of one bucket at once, the batched engine's tile (the fast tier, and the
-standard and max-quality tiers on the dense scan; :func:`tile_route`).
+of one bucket at once, the batched engine's tile (every tier on either
+scan, without a mesh; :func:`tile_route`).
 
 Stats are the same five Python ints for every tier (passes / li_last /
 li_total / split_moved / n_communities); the sharded route adds
@@ -214,16 +214,12 @@ def run_detection(graph, options, *, phase_seconds=None, telemetry=None):
     )
 
 
-def tile_route(options, nv: int, m_cap: int, device_type: str) -> bool:
-    """Whether a batch of this shape and these options takes the engine's
-    tile (:func:`run_detection_tile`), without a mesh: the fast tier at
-    every shape (LPA has no scan), and the standard tier with any split
-    and the max-quality tier on the dense scan.  Standard and max-quality
-    on the sortscan run one graph at a time (:func:`run_detection`)."""
-    if options.mesh is not None:
-        return False
-    return options.algorithm == "fast" or options.resolved_scan(
-        nv, m_cap, device_type=device_type) == "dense"
+def tile_route(options) -> bool:
+    """Whether a batch with these options can take the engine's tile
+    (:func:`run_detection_tile`): every tier, with any split, on either
+    scan (LPA has none), without a mesh.  A mesh runs one graph at a
+    time, sharded."""
+    return options.mesh is None
 
 
 def _pick_tile(u, refined, standard):
@@ -248,10 +244,12 @@ def _pick_tile(u, refined, standard):
     return C, stats, q
 
 
-def _partition_tile(stacked, u, options):
-    """:func:`partition` of each graph of a tile on its union ``u``:
-    ``(C [b, nv] local ids, stats, Q float32 [b] or None)``; max-quality
-    returns its chosen candidate's Q, which its pick computed."""
+def _partition_tile(stacked, u, options, scan):
+    """:func:`partition` of each graph of a tile on its union ``u``, the
+    pass loops on ``scan`` ('sort' or 'dense', as :func:`run_detection`
+    resolves it): ``(C [b, nv] local ids, stats, Q float32 [b] or
+    None)``; max-quality returns its chosen candidate's Q, which its pick
+    computed."""
     algorithm = options.algorithm
     if algorithm == "fast":
         C, rounds, n_comms, _ = lpa_run_tile(stacked, union=u)
@@ -260,11 +258,13 @@ def _partition_tile(stacked, u, options):
                    for r, n in zip(rounds, n_comms.tolist())], None
     cfg = options.louvain
     if algorithm == "standard":
-        C, stats, _ = louvain_tile(stacked, cfg, union=u)
+        C, stats, _ = louvain_tile(stacked, cfg, union=u, scan=scan)
         return C, stats, None
     # max-quality: the refined candidate, the GSP one, the better of each
-    refined = louvain_tile(stacked, tier_config(algorithm, cfg), union=u)
-    standard = louvain_tile(stacked, _standard_config(cfg), union=u)
+    refined = louvain_tile(stacked, tier_config(algorithm, cfg), union=u,
+                           scan=scan)
+    standard = louvain_tile(stacked, _standard_config(cfg), union=u,
+                            scan=scan)
     return _pick_tile(u, refined[:2], standard[:2])
 
 
@@ -278,19 +278,22 @@ def run_detection_tile(graphs, options):
     partition is :func:`~repro_torch.core.louvain.louvain_tile` (standard),
     two of them and a per-graph pick (max-quality) or
     :func:`~repro_torch.core.lpa.lpa_run_tile` (fast), all on one union
-    of the graphs' live edges; then the detector and the modularity run
-    once on that union, with one host copy for their counts and values."""
+    of the graphs' live edges, with the scan that
+    ``options.resolved_scan`` gives the stacked shape on its device, as
+    :func:`run_detection` resolves it for each graph; then the detector
+    and the modularity run once on that union, with one host copy for
+    their counts and values."""
     from repro_torch.core.api import Detection
     from repro_torch.core.detect import disconnected_communities_tile
 
     stacked = stack_graphs(graphs)
-    if not tile_route(options, stacked.nv, stacked.m_cap,
-                      stacked.device.type):
-        raise ValueError("the tile runs the fast tier, and the standard "
-                         "and max-quality tiers on the dense scan, without "
+    if not tile_route(options):
+        raise ValueError("the tile runs every tier on either scan, without "
                          "a mesh")
+    scan = options.resolved_scan(stacked.nv, stacked.m_cap,
+                                 device_type=stacked.device.type)
     u = union_of(stacked)
-    C, stats, q = _partition_tile(stacked, u, options)
+    C, stats, q = _partition_tile(stacked, u, options, scan)
     b, nv = u.b, u.nv
     slot = torch.arange(b * nv, dtype=torch.int32, device=C.device)
     top = C.view(b * nv) + (slot - torch.remainder(slot, nv))

@@ -10,14 +10,13 @@ sync a sweep (``core/local_move.py``), and a batch takes one of two
 routes (``DispatchInfo.route``):
 
 * ``"tile"``, the reference's lane-parallel batch, at ``sub_batch > 1``
-  for every tier on the card's default buckets: the fast tier at every
-  bucket, and the standard tier (any split) and the max-quality tier on
-  the dense scan (:func:`~repro_torch.core.portfolio.tile_route`), and
-  the warm updates on the dense scan (:meth:`BatchedLouvainEngine.
-  update_route_for`).  The batch is cut into tiles of at most
-  ``sub_batch`` graphs, and each tile runs on the live edges of its
-  graphs as one union (``graph/container.py:GraphUnion``): a detection
-  tile runs :func:`~repro_torch.core.portfolio.run_detection_tile`, one
+  for every tier and the warm updates at every bucket, on either scan
+  (:meth:`BatchedLouvainEngine.route_for`,
+  :meth:`BatchedLouvainEngine.update_route_for`).  The batch is cut into
+  tiles of at most ``sub_batch`` graphs, and each tile runs on the live
+  edges of its graphs as one union (``graph/container.py:GraphUnion``):
+  a detection tile runs
+  :func:`~repro_torch.core.portfolio.run_detection_tile`, one
   pass loop for all (``core/louvain.py:louvain_tile``; max-quality runs
   two, refinement on the union in the split slot, then picks per graph)
   or one LPA round loop (``core/lpa.py:lpa_run_tile``); an update tile
@@ -27,15 +26,17 @@ routes (``DispatchInfo.route``):
   pass count, place on the ``tau`` ladder, awake set, sweep or round
   loop state and convergence: a graph that converges stops moving and
   keeps its state, and a graph whose pass loop is done leaves the union
-  at the next aggregation.  A tile needs no fixed width, so the last one
+  at the next aggregation.  On the dense scan a pass builds one
+  ``[b, nv, nv]`` adjacency; the sortscan builds none (its sweeps sort
+  the union's ``O(b * m_cap)`` edges, and its splits are the coo ones on
+  the union), so a tile of wide buckets holds only its edges and
+  ``O(b * nv)`` state.  A tile needs no fixed width, so the last one
   holds what is left and no filler graph runs.  A tile of one graph is
   ``run_detection`` (or ``warm_update``) of that graph.
-* ``"loop"`` for what stays one graph at a time: standard and
-  max-quality detections and the warm updates on the sortscan, and
-  every batch at ``sub_batch = 1``: each graph runs
+* ``"loop"`` for every batch at ``sub_batch = 1``: each graph runs
   :func:`~repro_torch.core.portfolio.run_detection` (or ``warm_update``),
-  the body of ``detect()``, one after another (ROADMAP A.8 option (a);
-  A.15d queues the sortscan's union).
+  the body of ``detect()``, one after another (ROADMAP A.8 option
+  (a)).
 
 Either way every result equals ``detect()`` (an update's,
 ``warm_update``) of the same graph, bit for bit.  Results come back as
@@ -79,8 +80,7 @@ import torch
 from repro_torch.core.api import DetectOptions
 from repro_torch.core.dynamic import warm_update, warm_update_tile
 from repro_torch.core.portfolio import (QualityContract, contract_for,
-                                        run_detection, run_detection_tile,
-                                        tile_route)
+                                        run_detection, run_detection_tile)
 from repro_torch.device import resolve_device
 from repro_torch.graph.container import Graph
 from repro_torch.service.buckets import Bucket, bucket_of, filler
@@ -291,22 +291,20 @@ class BatchedLouvainEngine:
     def route_for(self, bucket: Bucket,
                   algorithm: Optional[str] = None) -> str:
         """"tile" where a detect batch of ``bucket`` and this tier runs in
-        lockstep tiles (:func:`~repro_torch.core.portfolio.tile_route` at
-        ``sub_batch > 1``), else "loop"."""
-        opts = self.options.replace(
-            algorithm=self._resolve_algorithm(algorithm), mesh=None)
-        tiled = self.sub_batch > 1 and tile_route(
-            opts, bucket.nv, bucket.m_cap, self.device.type)
-        return "tile" if tiled else "loop"
+        lockstep tiles (:func:`~repro_torch.core.portfolio.
+        run_detection_tile`): at ``sub_batch > 1``, for every tier and
+        bucket on either scan, since a batch never runs sharded (as in
+        :meth:`_rows`).  Else "loop".  Raises on an unknown tier."""
+        self._resolve_algorithm(algorithm)
+        return "tile" if self.sub_batch > 1 else "loop"
 
     def update_route_for(self, bucket: Bucket) -> str:
         """"tile" where an update batch of ``bucket`` runs in lockstep
         tiles (:func:`~repro_torch.core.dynamic.warm_update_tile`): at
-        ``sub_batch > 1`` on the dense scan.  Else "loop": the sortscan
-        buckets and ``sub_batch = 1``.  A batch never runs sharded, so
-        ``options.mesh`` plays no part, as in :meth:`_rows`."""
-        tiled = self.sub_batch > 1 and self.scan_for(bucket) == "dense"
-        return "tile" if tiled else "loop"
+        ``sub_batch > 1``, on either scan.  Else "loop".  A batch never
+        runs sharded, so ``options.mesh`` plays no part, as in
+        :meth:`_rows`, and every bucket takes the same route."""
+        return "tile" if self.sub_batch > 1 else "loop"
 
     def _capacity(self, n: int) -> int:
         return -(-n // self.sub_batch) * self.sub_batch
@@ -515,7 +513,7 @@ class BatchedLouvainEngine:
                         [g for g, _, _ in tile],
                         torch.stack([C for _, C, _ in tile]),
                         torch.stack([t for _, _, t in tile]),
-                        tau=tau, max_iters=max_iters))
+                        tau=tau, max_iters=max_iters, scan=scan))
                 else:
                     rows.append(warm_update(*tile[0], tau=tau,
                                             max_iters=max_iters, scan=scan))

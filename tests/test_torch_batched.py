@@ -316,24 +316,26 @@ def test_tile_of_the_six_families(sync, prune):
 
 
 def test_tile_refuses_what_it_does_not_run():
-    """The tile runs every tier and split on the dense scan and the fast
-    tier at every shape; standard and max-quality on the sortscan, and
-    any mesh, stay off it."""
+    """The tile runs every tier and split on either scan; any mesh stays
+    off it."""
     graphs = _pool(2)
-    nv, m_cap = graphs[0].nv, graphs[0].m_cap
-    for opts in (DetectOptions(scan="sort"),
-                 DetectOptions(scan="sort", algorithm="max-quality"),
+    for opts in (DetectOptions(scan="sort", mesh=2),
+                 DetectOptions(scan="sort", algorithm="max-quality", mesh=2),
                  DetectOptions(scan="dense", mesh=2),
                  DetectOptions(scan="sort", algorithm="fast", mesh=2)):
-        assert not tile_route(opts, nv, m_cap, "cpu")
+        assert not tile_route(opts)
         with pytest.raises(ValueError, match="the tile runs"):
             run_detection_tile(graphs, opts)
     for opts in (STANDARD, DetectOptions(scan="dense", algorithm="fast"),
                  DetectOptions(scan="sort", algorithm="fast"),
                  DetectOptions(scan="dense", algorithm="max-quality"),
                  DetectOptions(scan="dense",
-                               louvain=LouvainConfig(split="refine"))):
-        assert tile_route(opts, nv, m_cap, "cpu"), opts
+                               louvain=LouvainConfig(split="refine")),
+                 DetectOptions(scan="sort"),
+                 DetectOptions(scan="sort", algorithm="max-quality"),
+                 DetectOptions(scan="sort",
+                               louvain=LouvainConfig(split="sl-lpp"))):
+        assert tile_route(opts), opts
     C, stats, _ = louvain_tile(stack_graphs(graphs),
                                LouvainConfig(split="sp-lp"))
     assert [s["passes"] for s in stats] == [
@@ -389,8 +391,9 @@ def test_engine_routes_and_keys():
     assert eng.route_for(b) == "tile"
     assert eng.route_for(b, "fast") == "tile"
     assert eng.route_for(b, "max-quality") == "tile"
-    assert eng.route_for(Bucket(256, 1024)) == "loop"        # the sortscan
-    assert eng.route_for(Bucket(256, 1024), "max-quality") == "loop"
+    assert eng.scan_for(Bucket(256, 1024)) == "sort"
+    assert eng.route_for(Bucket(256, 1024)) == "tile"        # the sortscan
+    assert eng.route_for(Bucket(256, 1024), "max-quality") == "tile"
     assert eng.route_for(Bucket(256, 1024), "fast") == "tile"
     assert BatchedLouvainEngine(device="cpu", sub_batch=1).route_for(b) \
         == "loop"
@@ -415,4 +418,4 @@ def test_engine_routes_and_keys():
     eng.update_batch([(g_sort, np.arange(g_sort.nv, dtype=np.int32),
                        np.zeros(g_sort.nv, bool))])
     assert (eng.last_update_info.route, eng.last_update_info.capacity) == (
-        "loop", 4)                                          # the sortscan
+        "tile", 4)                                          # the sortscan

@@ -361,22 +361,30 @@ def test_engine_update_tiles_equal_loop(engine_case, sub_batch):
 
 
 def test_update_routes_sortscan_and_width_one_keep_the_loop():
+    """The routes of an update batch: at ``sub_batch > 1`` the sortscan
+    bucket takes the tile as the dense one does, and width 1 (the CPU's
+    auto width) keeps the loop on both; every result is ``warm_update``'s
+    with the sortscan."""
     g = j_admit(rg.sbm_graph(n_nodes=96, n_blocks=3, p_in=0.08, p_out=0.01,
                              seed=5)[0], [jservice.Bucket(256, 1024)])[0]
     g = _port(g)
     eng = BatchedLouvainEngine(device="cpu", sub_batch=4)
     assert eng.scan_for(Bucket(256, 1024)) == "sort"
-    assert eng.update_route_for(Bucket(256, 1024)) == "loop"
+    assert eng.update_route_for(Bucket(256, 1024)) == "tile"
     assert eng.update_route_for(Bucket(64, 512)) == "tile"
-    assert BatchedLouvainEngine(device="cpu").update_route_for(
-        Bucket(64, 512)) == "loop"
+    for bucket in (Bucket(64, 512), Bucket(256, 1024)):
+        assert BatchedLouvainEngine(device="cpu").update_route_for(
+            bucket) == "loop"
     nv = g.nv
     items = [(g, np.arange(nv, dtype=np.int32), np.eye(nv, dtype=bool)[k])
              for k in (0, 7)]
     got = eng.update_batch(items)
     info = eng.last_update_info
-    assert (info.route, info.capacity) == ("loop", 4)
-    for (gg, C, t), r in zip(items, got):
+    assert (info.route, info.capacity) == ("tile", 4)
+    loop = BatchedLouvainEngine(device="cpu").update_batch(items)
+    for (gg, C, t), r, x in zip(items, got, loop):
+        np.testing.assert_array_equal(r.C, x.C)
+        assert all(getattr(r, k) == getattr(x, k) for k in KEYS)
         lone = td.warm_update(gg, torch.from_numpy(C), torch.from_numpy(t),
                               scan="sort")
         np.testing.assert_array_equal(r.C, lone["C"].numpy())

@@ -9,8 +9,9 @@ fixed order), and ``detect()`` on the card against ``detect()`` on the CPU,
 exactly, for every tier and split policy (and the modularity that decides
 max-quality's pick, bit for bit), with either scan, and
 ``update_communities`` on the card against the CPU and across scans, and
-the batched engine's detect batches (one a default bucket) and update
-batch on the card against the CPU.  The kernels of the kernel API are held
+the batched engine's detect batches (one a default bucket, and the tiles
+of two sortscan buckets) and update batches on the card against the
+CPU.  The kernels of the kernel API are held
 against their plain versions within stated bounds: float32 rounding bounds
 against float64 for the sums, the reference's own tolerances for spmm and
 float32 attention, and the output's bf16 rounding (``chip_smoke.py`` phase
@@ -20,6 +21,8 @@ A.14a): each LM smoke config's flash forward on the card against the CPU's
 plain route, flash refusing autograd on the card, decode against forward,
 the trainers' steps, and the sampler's draws across devices.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1563,6 +1566,113 @@ def test_tile_on_card_equals_cpu(cuda, sub_batch, algorithm):
             b.sweeps, b.split_moved, b.q)
         assert a.q == d.modularity
         assert algorithm == "fast" or a.n_disconnected == 0
+
+
+# the sortscan's buckets: past the dense scan's 1,025 slots, and under the
+# card's 0.004 crossover (chip_smoke.py phase 6's sortscan families)
+SORTSCAN_TILE_GRAPHS = {
+    (4096, 65536): lambda s: rmat_graph(scale=12, edge_factor=8, seed=s,
+                                        n_cap=4096, m_cap=65536,
+                                        device="cpu"),
+    (1024, 4096): lambda s: sbm_graph(1000, 20, 0.06, 0.0005, seed=s,
+                                      n_cap=1024, m_cap=4096,
+                                      device="cpu")[0],
+}
+SORTSCAN_TILE_N = 10
+
+
+@functools.lru_cache(maxsize=None)
+def _sortscan_loop_on_cpu(bucket, algorithm):
+    """The CPU engine's loop (``sub_batch=1``) over the bucket's graphs."""
+    from repro_torch.service import BatchedLouvainEngine
+
+    graphs = [SORTSCAN_TILE_GRAPHS[bucket](s)
+              for s in range(SORTSCAN_TILE_N)]
+    eng = BatchedLouvainEngine(device="cpu")
+    res = eng.detect_batch(graphs, algorithm=algorithm)
+    assert eng.last_detect_info.route == "loop"
+    return graphs, res
+
+
+@pytest.mark.parametrize("algorithm", TILE_TIERS)
+@pytest.mark.parametrize("sub_batch", [8, 32])
+@pytest.mark.parametrize("bucket", list(SORTSCAN_TILE_GRAPHS))
+def test_sortscan_tile_on_card_equals_cpu(cuda, bucket, sub_batch,
+                                          algorithm):
+    """The engine's batch of each tier on a sortscan bucket, in tiles on
+    the card, against the CPU's loop and ``detect()`` on the card; the
+    tile's B.1 launches fewer than the loop's, and neither launches a
+    dense kernel."""
+    from repro_torch.core import DetectOptions, detect
+    from repro_torch.kernels.dense_sweep import kernel_launches
+    from repro_torch.kernels.segsum import segreduce_sorted_cuda
+    from repro_torch.service import BatchedLouvainEngine, Bucket
+
+    graphs, want = _sortscan_loop_on_cpu(bucket, algorithm)
+    eng = BatchedLouvainEngine(sub_batch=sub_batch)
+    assert eng.scan_for(Bucket(*bucket)) == "sort"
+    card = [g.to(cuda) for g in graphs]
+
+    def launches(fn):
+        seg0, dense0 = segreduce_sorted_cuda.launches, kernel_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        dense = sum(n - dense0[k] for k, n in kernel_launches().items())
+        return out, (segreduce_sorted_cuda.launches - seg0, dense)
+
+    got, n_tile = launches(lambda: eng.detect_batch(card,
+                                                    algorithm=algorithm))
+    assert eng.last_detect_info.route == "tile"
+    opts = DetectOptions(algorithm=algorithm)
+    dets, n_loop = launches(lambda: [detect(g, options=opts) for g in card])
+    assert n_tile[0] < n_loop[0] and n_tile[1] == n_loop[1] == 0, (
+        n_tile, n_loop)
+    for a, b, d in zip(got, want, dets):
+        np.testing.assert_array_equal(a.C, b.C)
+        np.testing.assert_array_equal(a.C, d.labels.cpu().numpy())
+        assert (a.n_communities, a.n_disconnected, a.fraction, a.passes,
+                a.sweeps, a.split_moved, a.q) == (
+            b.n_communities, b.n_disconnected, b.fraction, b.passes,
+            b.sweeps, b.split_moved, b.q)
+        assert a.q == d.modularity
+        assert algorithm == "fast" or a.n_disconnected == 0
+
+
+@pytest.mark.parametrize("sub_batch", [8, 32])
+@pytest.mark.parametrize("bucket", list(SORTSCAN_TILE_GRAPHS))
+def test_sortscan_update_batch_card_equals_cpu(cuda, bucket, sub_batch):
+    """The card's update tiles on a sortscan bucket against the CPU's
+    loop: labels, counts, sweeps, affected vertices and Q equal, nothing
+    disconnected."""
+    from repro_torch.service import BatchedLouvainEngine, ResultStore
+
+    graphs, dets = _sortscan_loop_on_cpu(bucket, "standard")
+    store = ResultStore(device="cpu")
+    items = []
+    for i, (g, r) in enumerate(zip(graphs, dets)):
+        store.put(f"g{i}", g, r.C, n_communities=r.n_communities,
+                  n_disconnected=r.n_disconnected, q=r.q)
+        rng = np.random.default_rng(i)
+        n = int(g.n_nodes)
+        upd = GraphUpdate(u=rng.integers(0, n - 4, 24),
+                          v=rng.integers(0, n - 4, 24),
+                          dw=np.ones(24, np.float32), add=2,
+                          remove=[5 + i, 300 + i])
+        p = store.prepare_update(f"g{i}", upd)
+        items.append((p.graph, p.C_prev, p.touched))
+    cpu = BatchedLouvainEngine(device="cpu")
+    want = cpu.update_batch(items)
+    assert cpu.last_update_info.route == "loop"
+    card = BatchedLouvainEngine(sub_batch=sub_batch)
+    got = card.update_batch(items)
+    assert card.last_update_info.route == "tile"
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.C, b.C)
+        assert (a.n_communities, a.n_disconnected, a.fraction, a.iterations,
+                a.n_affected, a.split_moved, a.q) == (
+            b.n_communities, b.n_disconnected, b.fraction, b.iterations,
+            b.n_affected, b.split_moved, b.q)
+        assert a.n_disconnected == 0
 
 
 # ---------------------------------------------------------------------------
